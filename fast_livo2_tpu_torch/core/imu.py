@@ -47,7 +47,7 @@ class ImuNoise(NamedTuple):
 def make_noise(acc_cov=0.5, gyr_cov=0.3, b_acc_cov=1e-4, b_gyr_cov=1e-4,
                inv_expo_cov=0.1, mean_acc_norm=GRAVITY,
                est_bias=True, est_gravity=True, est_exposure=True,
-               device="cpu") -> ImuNoise:
+               device="cuda") -> ImuNoise:
     def full3(v):
         return torch.full((3,), float(v), dtype=torch.float32, device=device)
 

@@ -1,46 +1,55 @@
-"""The LIO pipeline: measurement sync + per-frame LIO steps on the device
-(port of fast_livo2_tpu/core/pipeline.py, ONLY_LIO and ONLY_LO modes).
+"""The LIVO pipeline: measurement sync + per-frame LIO and VIO steps on
+the device (port of fast_livo2_tpu/core/pipeline.py: LIVO in split mode,
+ONLY_LIO and ONLY_LO).
 
 Equivalent of LIVMapper (reference src/LIVMapper.cpp): the host owns the
 timestamp-driven sync state machine (sync_packages, LIVMapper.cpp:
 884-1119) and ragged->fixed batching; every per-frame computation — IMU
 propagation (through the CUDA covariance-scan kernel on the GPU),
-undistortion, downsample, the iterated LIO ESIKF and the voxel-map
-insert — runs as tensor ops on `device` with the state kept there.
-Events are scan ends (ONLY_LIO cuts at scan-end times; ONLY_LO is
-LiDAR-only with constant-velocity propagation).
+undistortion, downsample, the iterated LIO ESIKF, the voxel-map insert
+and the VIO frame (the photometric iterations through the CUDA kernel of
+ops/photo_iteration) — runs as tensor ops on `device` with the state
+kept there. LIVO events are camera frames: each runs the LIO update over
+the points up to the capture time, then the VIO update at that time
+(LIVMapper.cpp:940-1085), in the JAX package's split order: LIO without
+the map insert, the VIO half, then the deferred insert. ONLY_LIO cuts at
+scan ends; ONLY_LO is LiDAR-only with constant-velocity propagation.
+Images ship as uint8 and convert to float32 on the device.
 
 Host syncs per frame: the LIO loop reads one bool per iteration
-(core/lio.py, at most max_iterations - 1); with map sliding enabled one
-3-float position read every 10 frames. Trajectory and diagnostics stay
-on the device until `_finalize_host_views` converts them once, at the
-end.
+(core/lio.py, at most max_iterations - 1); the photometric loop reads
+one per iteration but the last of each pyramid level (core/vio.py, at
+most 16 at the defaults); with map sliding enabled one 3-float position
+read every 10 frames. Trajectory and diagnostics stay on the device
+until `_finalize_host_views` converts them once, at the end.
 
 Not in this slice (the constructor raises NotImplementedError naming the
-ROADMAP.md item): LIVO mode, per-stage timing, the fused frame,
-point-cloud/effect-point/state-trace outputs, IMU-rate odometry,
-keyframes and online refinement.
+ROADMAP.md item): raycast recovery and the inverse-compositional update,
+per-stage timing, the fused frame, point-cloud/effect-point/state-trace
+outputs, IMU-rate odometry, keyframes and online refinement.
 """
 
 import bisect
 import time
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models import camera as cam_mod
 from ..models import lidar as lidar_mod
 from ..ops import eig3, so3
 from ..utils.config import LIVOConfig
 from . import imu as imu_mod
 from . import lio as lio_mod
+from . import vio as vio_mod
 from . import voxel_map as vmap_mod
 from .state import init_cov, init_state, pack_state, unpack_state
 
 # (config predicate, flag name, ROADMAP.md item that ports it)
 _UNPORTED_FLAGS = (
-    (lambda c: c.tpu.stage_timing, "tpu.stage_timing", "Queue 1 item 10"),
-    (lambda c: c.tpu.fused_frame, "tpu.fused_frame", "Queue 1 item 10"),
+    (lambda c: c.tpu.stage_timing, "tpu.stage_timing", "Queue 1 item 17"),
+    (lambda c: c.tpu.fused_frame, "tpu.fused_frame", "Queue 1 item 17"),
     (lambda c: c.pcd_save.pcd_save_en, "pcd_save.pcd_save_en",
      "Queue 1 item 13"),
     (lambda c: c.publish.pub_effect_point_en, "publish.pub_effect_point_en",
@@ -48,6 +57,22 @@ _UNPORTED_FLAGS = (
     (lambda c: c.uav.imu_rate_odom, "uav.imu_rate_odom", "Queue 1 item 13"),
     (lambda c: c.evo.pose_output_en, "evo.pose_output_en", "Queue 1 item 13"),
 )
+# the same, for flags that only the VIO half reads (LIVO mode)
+_UNPORTED_VIO_FLAGS = (
+    (lambda c: c.vio.raycast_en, "vio.raycast_en", "Queue 1 item 12"),
+    (lambda c: c.vio.inverse_composition_en, "vio.inverse_composition_en",
+     "Queue 1 item 12"),
+)
+
+
+class ScanPoints(NamedTuple):
+    """A frame's posterior scan, as the VIO half and the deferred map
+    insert read it (the JAX package's pg_pack columns)."""
+
+    pts_w: torch.Tensor  # (N, 3) world points
+    normal: torch.Tensor  # (N, 3) matched plane normal, 0 if unmatched
+    var_w6: torch.Tensor  # (N, 6) sym6 world covariances
+    valid: torch.Tensor  # (N,)
 
 
 def _plane_cond(match, valid):
@@ -91,11 +116,9 @@ class LIVOPipeline:
             raise ValueError(
                 f"slam_mode {slam_mode!r} not in {self.SLAM_MODES} "
                 "('only_lio' = no camera; 'only_lo' = no camera, no IMU)")
-        if slam_mode == "livo":
-            raise NotImplementedError(
-                "slam_mode 'livo' (the VIO half) is not ported yet: "
-                "ROADMAP.md Queue 1 items 8-10")
-        for pred, name, item in _UNPORTED_FLAGS:
+        flags = _UNPORTED_FLAGS + (_UNPORTED_VIO_FLAGS if slam_mode == "livo"
+                                   else ())
+        for pred, name, item in flags:
             if pred(cfg):
                 raise NotImplementedError(
                     f"config flag {name} is not ported yet: ROADMAP.md {item}")
@@ -118,13 +141,50 @@ class LIVOPipeline:
             pre_descend_margin=t.pre_descend_margin,
             match_finest=t.match_finest,
         )
+        self.cam = cam_mod.make_camera(cfg.camera)
+        gs, gnw, gnh = vio_mod.derive_grid(self.cam, cfg.vio.grid_size,
+                                           cfg.vio.grid_n_height)
+        self.vio_cfg = vio_mod.VIOConfig(
+            grid_size=gs, grid_n_width=gnw, grid_n_height=gnh,
+            patch_size=cfg.vio.patch_size,
+            pyramid_levels=cfg.vio.patch_pyrimid_level,
+            max_obs=t.vis_obs_per_point,
+            pool_capacity=t.vis_point_capacity,
+            frame_ring=t.frame_ring,
+            max_iterations=cfg.vio.max_iterations,
+            img_point_cov=cfg.vio.img_point_cov,
+            outlier_threshold=cfg.vio.outlier_threshold,
+            exposure_estimate_en=cfg.vio.exposure_estimate_en,
+            normal_en=cfg.vio.normal_en,
+            ncc_en=cfg.vio.ncc_en,
+            ncc_thre=cfg.vio.ncc_thre,
+            raycast_en=cfg.vio.raycast_en,
+            inverse_composition_en=cfg.vio.inverse_composition_en,
+            true_pyramid=t.true_pyramid,
+            pallas_photo=t.pallas_photo,
+        )
         ext = cfg.extrin_calib
-        self.ext_R = self._put(np.array(ext.extrinsic_R, np.float32).reshape(3, 3))
-        self.ext_T = self._put(np.array(ext.extrinsic_T, np.float32))
+        ext_R = np.array(ext.extrinsic_R, np.float32).reshape(3, 3)
+        ext_T = np.array(ext.extrinsic_T, np.float32)
+        self.ext_R = self._put(ext_R)
+        self.ext_T = self._put(ext_T)
+        # camera-from-IMU = camera-from-lidar o lidar-from-IMU
+        # (VIOManager::initializeVIO, vio.cpp:57-58 with Rli = extR^T)
+        Rcl = np.array(ext.Rcl, np.float32).reshape(3, 3)
+        Pcl = np.array(ext.Pcl, np.float32)
+        self.Rci = self._put(Rcl @ ext_R.T)
+        self.Pci = self._put(Rcl @ (-ext_R.T @ ext_T) + Pcl)
 
         # device state: state+cov live packed in one vector between frames
         self.packed = pack_state(init_state(self.device), init_cov(self.device))
         self.vmap_state = vmap_mod.make_map(self.map_cfg, self.device)
+        # The visual pool and frame ring exist only where the VIO half
+        # runs (at the defaults they hold ~250 MB).
+        if slam_mode == "livo":
+            self.pool = vio_mod.make_pool(self.vio_cfg, self.device)
+            self.ring = vio_mod.make_ring(self.vio_cfg, self.cam, self.device)
+        else:
+            self.pool = self.ring = None
 
         self.noise: Optional[imu_mod.ImuNoise] = None
         self.imu_inited = False
@@ -137,6 +197,10 @@ class LIVOPipeline:
         self._imu_t = np.zeros((0,), np.float64)
         self._imu_gyr = np.zeros((0, 3), np.float64)
         self._imu_acc = np.zeros((0, 3), np.float64)
+        # camera frames (t_event, u8 image: numpy until shipped, then a
+        # device tensor); in LIVO mode they are the events
+        self._img_queue: List[Tuple[float, object]] = []
+        self._use_images = slam_mode == "livo"
         self._scan_events: List[float] = []  # scan-end event times
         self._scan_horizon = -np.inf  # latest pushed point timestamp
         # Rejected-input accounting (corrupt/NaN/loop-back/oversized
@@ -147,6 +211,7 @@ class LIVOPipeline:
         self._packet_t0: Optional[float] = None  # packet-prep cursor
         self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self.log = FrameLog()
+        self.photo_iterations = 0  # photometric iterations run (all frames)
         self._last_slide_pos = np.zeros(3)
         self._pos_snapshot = None  # position copy consumed at the next check
 
@@ -172,11 +237,11 @@ class LIVOPipeline:
 
     def _frame_step(self, packed_sc, vmap_state, imu_pack, pts_pack,
                     first: bool, do_map: bool = True):
-        """One frame on the device. imu_pack: (K, 9) packed IMU intervals
-        (a scalar packet duration in only_lo mode); pts_pack: the points
-        wire packet (see `_unpack_pts`). Returns (packed_sc, map, diag
-        (6,), pg) where pg = (pts_w, var_w6, valid) feeds a deferred map
-        insert (None on the first frame)."""
+        """One frame's LIO half on the device. imu_pack: (K, 9) packed IMU
+        intervals (a scalar packet duration in only_lo mode); pts_pack:
+        the points wire packet (see `_unpack_pts`). Returns (packed_sc,
+        map, diag (6,), pg) where pg (a ScanPoints) feeds the VIO half and
+        the deferred map insert (None on the first frame)."""
         cfg = self.cfg
         state, cov = unpack_state(packed_sc)
         pts, t_offs, valid = self._unpack_pts(pts_pack)
@@ -223,6 +288,7 @@ class LIVOPipeline:
             plane_info_cap=cfg.tpu.lio_plane_info_cap,
         )
         var_w6 = vmap_mod.sym6(res.var_w)
+        normal = torch.where(res.match.valid[:, None], res.match.normal, 0.0)
         if do_map:
             vmap_state = vmap_mod.update_map(
                 vmap_state, res.pts_w, var_w6, down_valid, self.map_cfg,
@@ -233,7 +299,23 @@ class LIVOPipeline:
             zero, zero, zero, _plane_cond(res.match, down_valid),
         ])
         return (pack_state(res.state, res.cov), vmap_state, diag,
-                (res.pts_w, var_w6, down_valid))
+                ScanPoints(res.pts_w, normal, var_w6, down_valid))
+
+    def _vio_half(self, packed_sc, img, pg: ScanPoints):
+        """The VIO half of a LIVO frame (split mode) on the u8 image `img`
+        (H, W). Updates the pool and ring in place. Returns (packed_sc,
+        vdiag (3,) [n_tracked, n_added, mean_error], photometric
+        iterations run)."""
+        state, cov = unpack_state(packed_sc)
+        vres = vio_mod.vio_step(
+            state, cov, self.pool, self.ring, self.vmap_state,
+            img.to(torch.float32), pg.pts_w, pg.normal, pg.var_w6, pg.valid,
+            self.frame_id, self.cam, self.Rci, self.Pci, self.vio_cfg,
+            self.map_cfg)
+        self.pool, self.ring = vres.pool, vres.ring
+        vdiag = torch.stack([vres.n_tracked.to(torch.float32),
+                             vres.n_added.to(torch.float32), vres.mean_error])
+        return pack_state(vres.state, vres.cov), vdiag, vres.photo_iterations
 
     def _unpack_pts(self, pts_pack):
         """(pts (N, 3), t_offs (N,), valid (N,)) from either wire format:
@@ -437,24 +519,48 @@ class LIVOPipeline:
             self.pending.append(chunk)
         t_end = t_begin + (offs[-1] if len(offs) else 0.0)
         self._scan_horizon = max(self._scan_horizon, t_end)
-        # ordered insert: a late scan must not enqueue a backwards event
-        if self._scan_events and t_end < self._scan_events[-1]:
-            bisect.insort(self._scan_events, t_end)
-        else:
-            self._scan_events.append(t_end)
+        if not self._use_images:
+            # ordered insert: a late scan must not enqueue a backwards
+            # event (the sync cursor is monotonic)
+            if self._scan_events and t_end < self._scan_events[-1]:
+                bisect.insort(self._scan_events, t_end)
+            else:
+                self._scan_events.append(t_end)
 
     def push_image(self, t: float, img: np.ndarray):
-        """Camera frames are dropped and counted in the camera-less modes
-        (they cut events at scan ends, not image times)."""
-        self.dropped_inputs["image_mode"] += 1
+        """Append one camera frame (img_cbk, LIVMapper.cpp:829-860). The
+        event time is the capture time, stamp + exposure_time_init
+        (sync_packages, LIVMapper.cpp:949-1010). Frames queue on the host
+        as uint8 and ship to the device a bounded window ahead
+        (`_ship_images`). In the camera-less modes frames are dropped and
+        counted: those modes cut events at scan ends."""
+        if self.slam_mode != "livo":
+            self.dropped_inputs["image_mode"] += 1
+            return
+        self._use_images = True
+        if isinstance(img, np.ndarray) and img.dtype != np.uint8:
+            img = np.clip(img, 0, 255).astype(np.uint8)
+        self._img_queue.append(
+            (t + self.cfg.time_offset.exposure_time_init, img))
+        self._ship_images()
 
-    def _event_ready(self, t_ev: float) -> bool:
+    def _ship_images(self):
+        """Upload the first `tpu.img_upload_ahead` queued frames (the
+        copies are asynchronous and overlap earlier frames' work)."""
+        for i in range(min(self.cfg.tpu.img_upload_ahead,
+                           len(self._img_queue))):
+            t_i, im = self._img_queue[i]
+            if isinstance(im, np.ndarray):
+                self._img_queue[i] = (t_i, self._put(im))
+
+    def _event_ready(self, t_ev: float, is_image: bool) -> bool:
         """sync_packages admission: the IMU must extend past the cut time
+        and, for an image cut, the LiDAR data must cover the capture time
         (LIVMapper.cpp:949-1010 wait conditions)."""
         if self.slam_mode != "only_lo":
             if not len(self._imu_t) or self._imu_t[-1] <= t_ev:
                 return False
-        return True
+        return not is_image or self._scan_horizon >= t_ev
 
     def _imu_buf(self):
         class _V:
@@ -465,18 +571,24 @@ class LIVOPipeline:
 
     def poll(self, max_frames: Optional[int] = None, progress: bool = False,
              flush: bool = False) -> int:
-        """Drain ready events: one full frame update per scan end whose
-        input streams have arrived. `flush=True` = end of stream, process
-        the tail regardless of coverage. Returns the frames run."""
+        """Drain ready events: one full frame update per camera frame
+        (LIVO) or per scan end (LIO modes) whose input streams have
+        arrived. `flush=True` = end of stream, process the tail regardless
+        of coverage. Returns the frames run."""
         n_done = 0
         while max_frames is None or n_done < max_frames:
-            if not self._scan_events:
+            if self._use_images:
+                if not self._img_queue:
+                    break
+                t_ev, img = self._img_queue[0]
+            else:
+                if not self._scan_events:
+                    break
+                t_ev, img = self._scan_events[0], None
+            if not flush and not self._event_ready(t_ev, img is not None):
                 break
-            t_ev = self._scan_events[0]
-            if not flush and not self._event_ready(t_ev):
-                break
-            self._scan_events.pop(0)
-            if self._run_event(t_ev, progress=progress):
+            (self._img_queue if self._use_images else self._scan_events).pop(0)
+            if self._run_event(t_ev, img, progress=progress):
                 n_done += 1
         return n_done
 
@@ -488,10 +600,11 @@ class LIVOPipeline:
         if self._prefetch is not None or not (self.imu_inited
                                               and self.map_inited):
             return
-        if not self._scan_events:
+        q = self._img_queue if self._use_images else self._scan_events
+        if not q:
             return
-        t_nxt = self._scan_events[0]
-        if not self._event_ready(t_nxt):
+        t_nxt = q[0][0] if self._use_images else q[0]
+        if not self._event_ready(t_nxt, self._use_images):
             return
         self._prefetch = (t_nxt, self._prepare_packet(t_nxt, self._imu_buf()))
 
@@ -519,14 +632,19 @@ class LIVOPipeline:
         return self.trajectory
 
     def push_sequence(self, seq):
-        """Push every scan and IMU sample of an offline sequence (the
-        ingestion half of `process`)."""
+        """Push every scan, IMU sample and, in LIVO mode, camera frame of
+        an offline sequence (the ingestion half of `process`). A LIVO
+        pipeline given a sequence without images cuts at scan ends."""
+        self._use_images = self.slam_mode == "livo" and len(seq.images) > 0
         for t_begin, pts, offs in seq.scans:
             self.push_scan(t_begin, pts, offs)
         self.pending.sort(key=lambda x: x[1][0] if len(x[1]) else 1e18)
         self.push_imu(seq.imu_stamps, seq.imu_gyr, seq.imu_acc)
+        if self._use_images:
+            for t, img in seq.images:
+                self.push_image(t, img)
 
-    def _run_event(self, t_ev: float, progress: bool = False) -> bool:
+    def _run_event(self, t_ev: float, img=None, progress: bool = False) -> bool:
         """One sync cut: IMU init bootstrap, or a full frame update."""
         if not self.imu_inited:
             if self.slam_mode == "only_lo":
@@ -559,15 +677,26 @@ class LIVOPipeline:
             imu_pack, pts_pack = self._prepare_packet(t_ev, self._imu_buf())
         self._prefetch = None
         self.last_update_time = t_ev
+        use_vio = self._use_images and img is not None and not first
         defer_map = self.cfg.tpu.deferred_map_insert and not first
         self.packed, self.vmap_state, diag, pg = self._frame_step(
             self.packed, self.vmap_state, imu_pack, pts_pack,
             first=first, do_map=not defer_map)
+        vdiag = None
+        if use_vio:
+            # Split mode: the VIO half reads the map as the LIO half left
+            # it (without this frame's insert when that is deferred).
+            # push_image queued it as uint8; _ship_images may not have
+            # uploaded it yet (tpu.img_upload_ahead = 0)
+            img_dev = img if isinstance(img, torch.Tensor) else self._put(img)
+            self.packed, vdiag, n_it = self._vio_half(self.packed, img_dev, pg)
+            self.photo_iterations += n_it
         if defer_map:
             # The insert queues after the pose-producing work; the next
             # frame's match sees the updated map.
             self.vmap_state = vmap_mod.update_map(
-                self.vmap_state, *pg, self.map_cfg, compact=True)
+                self.vmap_state, pg.pts_w, pg.var_w6, pg.valid, self.map_cfg,
+                compact=True)
         self.map_inited = True
         # Map sliding: each check consumes the position snapshot taken at
         # the previous check (a 10-frame decision lag, harmless because
@@ -586,15 +715,19 @@ class LIVOPipeline:
         # One-ahead packet prefetch: the next event's upload overlaps this
         # frame's device work.
         self._prefetch_next()
+        self._ship_images()
         self._trim_imu()
         t_end = time.perf_counter()
         self.frame_id += 1
         # Keep device tensors; converting here would sync every frame.
         self.trajectory.append((t_ev, self.packed))
-        self.log.add(t=t_ev, t_wall=t_end, lio_s=t_end - t_frame0, vio_s=0.0,
-                     host_ms=(t_end - t_frame0) * 1e3, diag=diag)
+        row = dict(t=t_ev, t_wall=t_end, lio_s=t_end - t_frame0, vio_s=0.0,
+                   host_ms=(t_end - t_frame0) * 1e3, diag=diag)
+        if vdiag is not None:
+            row["vdiag"] = vdiag  # merges into diag[2:5] at finalize
+        self.log.add(**row)
         if progress and self.frame_id % 10 == 0:
-            print(f"[lio] frame {self.frame_id} t={t_ev:.2f} "
+            print(f"[{self.slam_mode}] frame {self.frame_id} t={t_ev:.2f} "
                   f"pos={self.packed[9:12].cpu().numpy().round(3)}")
         return True
 
@@ -609,12 +742,20 @@ class LIVOPipeline:
         diag_rows = [r for r in self.log.rows if "diag" in r]
         host_diag = (torch.stack([r["diag"] for r in diag_rows]).cpu().numpy()
                      if diag_rows else None)
+        vd_rows = [r for r in diag_rows if "vdiag" in r]
+        host_vd = (torch.stack([r["vdiag"] for r in vd_rows]).cpu().numpy()
+                   if vd_rows else None)
         for j, i in enumerate(new_idx):
             t = self.trajectory[i][0]
             self.trajectory[i] = (t, host[j, 0:9].reshape(3, 3), host[j, 9:12])
+        vd_of = {id(r): host_vd[j] for j, r in enumerate(vd_rows)}
         for j, r in enumerate(diag_rows):
             d = host_diag[j]
+            vd = vd_of.get(id(r))
+            if vd is not None:  # the VIO half's columns
+                d = np.concatenate([d[0:2], vd, d[5:6]])
             r.pop("diag")
+            r.pop("vdiag", None)
             r.update(n_eff=int(d[0]), mean_res=float(d[1]),
                      n_tracked=int(d[2]), n_added=int(d[3]),
                      vio_err=float(d[4]), plane_cond=float(d[5]))

@@ -37,7 +37,7 @@ class NavState(NamedTuple):
     inv_expo: torch.Tensor  # () inverse exposure time
 
 
-def init_state(device="cpu", dtype=torch.float32) -> NavState:
+def init_state(device="cuda", dtype=torch.float32) -> NavState:
     z = torch.zeros(3, dtype=dtype, device=device)
     return NavState(
         rot=torch.eye(3, dtype=dtype, device=device),
@@ -47,7 +47,7 @@ def init_state(device="cpu", dtype=torch.float32) -> NavState:
     )
 
 
-def init_cov(device="cpu", dtype=torch.float32) -> torch.Tensor:
+def init_cov(device="cuda", dtype=torch.float32) -> torch.Tensor:
     """Initial covariance (common_lib.h:137-139): 0.01 I, except
     var(inv_expo)=1e-5 and var(biases+gravity)=1e-5."""
     cov = torch.eye(DIM_STATE, dtype=dtype, device=device) * INIT_COV

@@ -110,7 +110,7 @@ class VoxelMapConfig(NamedTuple):
     sibling_search: bool = False  # also gate the nearest sibling voxel
 
 
-def make_map(cfg: VoxelMapConfig, device="cpu") -> VoxelMap:
+def make_map(cfg: VoxelMapConfig, device="cuda") -> VoxelMap:
     L, C = cfg.n_layers, 1 << cfg.capacity_log2
     return VoxelMap(
         keys=torch.full((L, C, 3), EMPTY, dtype=torch.int32, device=device),
@@ -128,17 +128,17 @@ def _const(values: tuple, dtype, device: str) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def layer_voxel_sizes(cfg: VoxelMapConfig, device="cpu") -> torch.Tensor:
+def layer_voxel_sizes(cfg: VoxelMapConfig, device) -> torch.Tensor:
     return _const(tuple(cfg.voxel_size / (1 << l) for l in range(cfg.n_layers)),
                   torch.float32, str(device))
 
 
-def layer_init_nums(cfg: VoxelMapConfig, device="cpu") -> torch.Tensor:
+def layer_init_nums(cfg: VoxelMapConfig, device) -> torch.Tensor:
     return _const(tuple(float(cfg.layer_init_num[min(l, len(cfg.layer_init_num) - 1)])
                         for l in range(cfg.n_layers)), torch.float32, str(device))
 
 
-def layer_has_kids(cfg: VoxelMapConfig, device="cpu") -> torch.Tensor:
+def layer_has_kids(cfg: VoxelMapConfig, device) -> torch.Tensor:
     return _const(tuple(1.0 if l < cfg.n_layers - 1 else 0.0
                         for l in range(cfg.n_layers)), torch.float32, str(device))
 
@@ -699,6 +699,44 @@ def match_planes(vmap_state: VoxelMap, pts_w: torch.Tensor, var_w,
         layer=torch.where(any_valid, best.to(torch.int32),
                           torch.full_like(best, -1, dtype=torch.int32)),
     )
+
+
+def query_plane(vmap_state: VoxelMap, pts_w: torch.Tensor, cfg: VoxelMapConfig):
+    """Ungated plane lookup along the containing chain: the first layer
+    whose voxel is a fitted plane wins (VoxelOctoTree::find_correspond,
+    voxel_map.cpp:292-305). Used by the VIO normal refinement
+    (vio.cpp:981-1034). Plane records come from the rec cache. Returns
+    (found, normal, d, center, radius, sigma_l) with
+    sigma_l = a^T cov_nn a + n^T cov_qq n at pts_w."""
+    dev = pts_w.device
+    n_pts = pts_w.shape[0]
+    L = cfg.n_layers
+    C = vmap_state.keys.shape[1]
+    layers = _layer_ids(L, dev)
+    keys_L = _layer_keys(pts_w, layer_voxel_sizes(cfg, dev))  # (L, N, 3)
+    slot, exists, _ = _lookup_window(vmap_state.keys, keys_L, cfg.probes,
+                                     claim_rounds=0, layers=layers)
+    row = layers[:, None] * C + torch.where(exists, slot, 0).long()
+    rec = vmap_state.rec.reshape(-1, REC_W)[row]
+    rec = torch.where(exists[..., None], rec, 0.0)  # (L, N, 22)
+    is_pl = (rec[..., _ISPL] > 0.5) & exists
+    a = pts_w - rec[..., _PL0 + 4:_PL0 + 7]
+    n = rec[..., _PL0:_PL0 + 3]
+    sigma = (quad6(rec[..., _PC0:_PC0 + 6], a)
+             + quad6(rec[..., _PC0 + 6:_PC0 + 12], n))
+    pl = rec[..., _PL0:_PL1]
+    found = torch.zeros(n_pts, dtype=torch.bool, device=dev)
+    out_plane = pts_w.new_zeros((n_pts, 8))
+    out_sigma = pts_w.new_zeros((n_pts,))
+    open_chain = torch.ones(n_pts, dtype=torch.bool, device=dev)
+    for li in range(L):
+        hit = open_chain & is_pl[li]
+        out_plane = torch.where(hit[:, None], pl[li], out_plane)
+        out_sigma = torch.where(hit, sigma[li], out_sigma)
+        found = found | hit
+        open_chain = open_chain & exists[li] & ~is_pl[li]
+    return (found, out_plane[:, 0:3], out_plane[:, 3], out_plane[:, 4:7],
+            out_plane[:, 7], out_sigma)
 
 
 def map_keys(vmap_state: VoxelMap, layer: int) -> torch.Tensor:

@@ -16,14 +16,17 @@ trajectory through it, and exact sensor streams:
 Ground-truth poses come back alongside for ATE computation.
 
 The PyTorch port's own copy of fast_livo2_tpu/io/synthetic.py: the
-LiDAR/IMU generators are identical (same seed -> same arrays), and
-`render_image` raises until the port has a camera model.
+generators are identical (same seed -> same arrays); `render_image`
+casts its rays through the port's camera model (models/camera.py).
 """
 
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..models import camera as cam_mod
 
 
 @dataclass
@@ -605,11 +608,39 @@ def degrade_image(img: np.ndarray, rng, photon_noise: float = 0.0,
 
 def render_image(traj: Trajectory, planes, t: float, cam, exposure: float = 1.0,
                  R_ci=None, P_ci=None, cull_range=None):
-    """Camera rendering needs the port's camera model, which arrives with
-    the VIO slice (ROADMAP.md Queue 1, items 2 and 11)."""
-    raise NotImplementedError(
-        "image rendering waits for the port's camera model "
-        "(ROADMAP.md Queue 1, items 2 and 11); use render=False")
+    """Ray-traced grayscale image (H, W) float32 from the camera pose at
+    time t (camera extrinsics R_ci/P_ci: x_cam = R_ci x_imu + P_ci)."""
+    R_ci = np.eye(3) if R_ci is None else R_ci
+    P_ci = np.zeros(3) if P_ci is None else P_ci
+    R_wi, p_wi = traj.pose(t)
+    # camera-from-world: x_c = R_ci (R_wi^T (x_w - p)) + P_ci
+    R_cw = R_ci @ R_wi.T
+    t_cw = -R_cw @ p_wi + P_ci
+    R_wc = R_cw.T
+    cam_origin = -R_wc @ t_cw
+    if cull_range is not None:  # generation-speed aid for big worlds;
+        # None (default) renders everything: the camera has no range
+        planes = cull_surfaces(planes, cam_origin, cull_range)
+
+    # Per-pixel ray directions through the camera model (pinhole with
+    # distortion, or equidistant fisheye), in float32 as the JAX
+    # package computes them, so sequences render through the same model
+    # the VIO projects with.
+    ys, xs = np.meshgrid(np.arange(cam.height), np.arange(cam.width), indexing="ij")
+    px = np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float32)
+    d_cam = cam_mod.cam2world(cam, torch.from_numpy(px)).numpy().astype(np.float64)
+    d_w = d_cam @ R_wc.T
+    o = np.broadcast_to(cam_origin, d_w.shape)
+    tt, pi, hit = ray_hits(o, d_w, planes)
+    pw = o + d_w * tt[:, None]
+    img = np.full(d_w.shape[0], 90.0)
+    for i, pl in enumerate(planes):
+        m = hit & (pi == i)
+        if not m.any():
+            continue
+        img[m] = pl.shade(pw[m])
+    img = img * exposure
+    return np.clip(img, 0, 255).reshape(cam.height, cam.width).astype(np.float32)
 
 
 @dataclass

@@ -12,10 +12,15 @@ import pytest
 import torch
 
 from fast_livo2_tpu_torch.ops import cov_scan
+from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
 # tests/test_imu.py:176-177: two float32 evaluation orders of the same
 # recursion (here FFMA in the kernel against ATen's matmul).
 RTOL_COV, ATOL_COV = 2e-4, 2e-5
+# K2: each HTH / HTz entry within 1e-4 of the plain block's largest
+# absolute entry plus rtol 2e-4 (the card sums the 64 pixels and the M
+# rows in another order); err rtol 1e-4; cnt exact.
+RTOL_PHOTO, BLOCK_ATOL_PHOTO = 2e-4, 1e-4
 
 
 def _need_card():
@@ -89,6 +94,111 @@ def test_only_lio_on_card_matches_cpu():
     gpu = LIVOPipeline(cfg, "only_lio", device="cuda").process(seq)
     assert cov_scan.LAUNCHES - before == len(gpu)
     cpu = LIVOPipeline(cfg, "only_lio", device="cpu").process(seq)
+    assert [t for t, _, _ in gpu] == [t for t, _, _ in cpu]
+    np.testing.assert_allclose(np.array([p for _, _, p in gpu]),
+                               np.array([p for _, _, p in cpu]), atol=8e-3)
+    np.testing.assert_allclose(np.array([R for _, R, _ in gpu]),
+                               np.array([R for _, R, _ in cpu]), atol=4e-3)
+
+
+def _photo_inputs(H, W, M, with_dist, seed=0):
+    """A smooth DN-scale image and M points ahead of the camera with stride
+    exponents 0-5 (the clamp to 4 bites) and about 10 % masked out."""
+    rng = np.random.default_rng(seed)
+    img = np.cumsum(np.cumsum(rng.standard_normal((H, W)), 0), 1)
+    img = ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.float32)
+    f = 0.6 * W
+    pos = np.stack([rng.uniform(-0.4, 0.4, M) * 4, rng.uniform(-0.3, 0.3, M) * 4,
+                    np.full(M, 4.0)], -1).astype(np.float32)
+    ref = rng.uniform(0, 255, (M, 64)).astype(np.float32)
+    slog = rng.integers(0, 6, M).astype(np.int32)
+    ok = rng.random(M) > 0.1
+    d = [0.02, -0.01, 0.001, -0.002] if with_dist else [0.0] * 4
+    dev = "cuda"
+    meta, refp = photo.pack_points(*(torch.from_numpy(a).to(dev)
+                                     for a in (pos, ref, slog, ok)))
+    eye = torch.eye(3, device=dev)
+    par = photo.pack_params(eye, torch.zeros(3, device=dev),
+                            torch.tensor(1.05, device=dev), eye, 0.1 * eye,
+                            f, f, W / 2, H / 2, d, 1.0, 1.0 if with_dist else 0.0)
+    return torch.from_numpy(img).to(dev), meta, refp, par
+
+
+def _assert_photo_close(got, want):
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(
+            g, w, rtol=RTOL_PHOTO, atol=BLOCK_ATOL_PHOTO * float(w.abs().max()))
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=0.0)
+    assert float(got[3]) == float(want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,M,with_dist", [
+    (512, 640, 396, False), (512, 640, 396, True), (96, 128, 8, True),
+    (48, 12, 3, False)])
+def test_photo_iteration_kernel_matches_plain(H, W, M, with_dist):
+    """K2 against its plain version on the card: the main path's 640 x 512
+    frame with M = 396, a small case where the clamp lowers the stride
+    exponent to 3, and the narrowest width the kernel takes."""
+    _need_card()
+    args = _photo_inputs(H, W, M, with_dist)
+    before = photo.LAUNCHES
+    got = photo.photo_iteration(*args)
+    torch.cuda.synchronize()
+    assert photo.LAUNCHES == before + 1
+    _assert_photo_close(got, photo.photo_iteration_plain(*args))
+
+
+@pytest.mark.cuda
+def test_photo_iteration_wrapper_rejects_bad_input():
+    _need_card()
+    img, meta, refp, par = _photo_inputs(64, 96, 8, False)
+    before = photo.LAUNCHES
+    with pytest.raises(TypeError):
+        photo.photo_iteration(img.double(), meta, refp, par)
+    with pytest.raises(ValueError):
+        photo.photo_iteration(img.t(), meta, refp, par)
+    with pytest.raises(ValueError):
+        photo.photo_iteration(img, meta.cpu(), refp, par)
+    with pytest.raises(ValueError):
+        photo.photo_iteration(img, meta, refp, par, ps=4)
+    with pytest.raises(ValueError):
+        photo.photo_iteration(img[:, :11].contiguous(), meta, refp, par)
+    assert photo.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_livo_on_card_matches_cpu():
+    """A short LIVO run on "cuda" (both kernels) against "cpu" (plain
+    versions), at the golden tolerances, and K2 launched once per
+    photometric iteration."""
+    _need_card()
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.io import synthetic
+    from fast_livo2_tpu_torch.models import camera
+    from fast_livo2_tpu_torch.utils.config import CameraConfig, LIVOConfig
+
+    cfg = LIVOConfig()
+    cfg.camera = CameraConfig(cam_model="Pinhole", cam_width=320,
+                              cam_height=256, cam_fx=200.0, cam_fy=200.0,
+                              cam_cx=160.0, cam_cy=128.0)
+    cfg.extrin_calib.Rcl = list(synthetic.R_CI_FORWARD.reshape(-1))
+    cfg.tpu.max_points_per_scan = 8192
+    cfg.tpu.max_points_down = 4096
+    cfg.tpu.hash_capacity_log2 = 15
+    cfg.tpu.vis_point_capacity = 8192
+    cfg.tpu.frame_ring = 32
+    cfg.lio.max_layer = 1
+    cfg.preprocess.filter_size_surf = 0.15
+    seq = synthetic.make_sequence(
+        duration=1.6, lidar_hz=10.0, img_hz=10.0, imu_hz=200.0,
+        cam=camera.make_camera(cfg.camera), seed=0, n_lines=12,
+        n_per_line=500, render=True, fov_deg=360.0)
+    before = photo.LAUNCHES
+    pipe = LIVOPipeline(cfg, "livo", device="cuda")
+    gpu = pipe.process(seq)
+    assert photo.LAUNCHES - before == pipe.photo_iterations > 0
+    cpu = LIVOPipeline(cfg, "livo", device="cpu").process(seq)
     assert [t for t, _, _ in gpu] == [t for t, _, _ in cpu]
     np.testing.assert_allclose(np.array([p for _, _, p in gpu]),
                                np.array([p for _, _, p in cpu]), atol=8e-3)

@@ -82,7 +82,7 @@ def _imu_case(seed, n_imu=24, hz=200.0, max_k=32):
 
 
 def _noise_pair(**kw):
-    return jimu.make_noise(**kw), timu.make_noise(**kw)
+    return jimu.make_noise(**kw), timu.make_noise(**kw, device="cpu")
 
 
 @pytest.mark.parametrize("est", [True, False])
@@ -129,7 +129,8 @@ def test_propagate_padding_is_noop():
     outs = []
     for k in (32, 64):
         b = timu.prepare_imu_batch(stamps, gyr, acc, 0.0, stamps[-1], k)
-        outs.append(timu.propagate(tstate.init_state(), tstate.init_cov(),
+        outs.append(timu.propagate(tstate.init_state(device="cpu"),
+                                   tstate.init_cov(device="cpu"),
                                    timu.batch_to_device(b, "cpu"), tn))
     np.testing.assert_allclose(outs[0][0].pos.numpy(), outs[1][0].pos.numpy(),
                                atol=1e-6)

@@ -102,7 +102,8 @@ def carried():
         np.random.default_rng(8).normal(size=19).astype(np.float32) * 1e-3))
     cov = np.asarray(jstate.init_cov()) * 0.5
     packed = np.asarray(jstate.pack_state(prior, jnp.asarray(cov)))
-    t_packed, tm = convert.state_from_numpy(packed, *(np.asarray(a) for a in jm))
+    t_packed, tm = convert.state_from_numpy(
+        packed, *(np.asarray(a) for a in jm), device="cpu")
     return dict(jm=jm, tm=tm, prior=prior, cov=cov, t_packed=t_packed,
                 pts_body=pts_body, valid=valid)
 

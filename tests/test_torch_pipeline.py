@@ -1,6 +1,6 @@
 """The port's ONLY_LIO pipeline on the CPU: the committed golden trajectory,
-both points wire formats, and the modes and flags this slice does not
-port yet.
+both points wire formats, and the modes and flags the port does not
+have yet.
 
 Tolerances of the golden (tests/test_golden_trace.py): timestamps 1e-6 s,
 positions 8e-3 m, rotation entries 4e-3 — cross-backend float noise over
@@ -110,8 +110,12 @@ def test_points_wire_round_trip(wire_q16):
 
 
 def test_unported_modes_and_flags_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LIVOPipeline(small_config(), slam_mode="livo", device="cpu")
+    LIVOPipeline(small_config(), slam_mode="livo", device="cpu")  # ported
+    for flag in ("raycast_en", "inverse_composition_en"):
+        cfg = small_config()
+        setattr(cfg.vio, flag, True)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            LIVOPipeline(cfg, slam_mode="livo", device="cpu")
     setters = [lambda c: setattr(c.tpu, "stage_timing", True),
                lambda c: setattr(c.tpu, "fused_frame", True),
                lambda c: setattr(c.pcd_save, "pcd_save_en", True),

@@ -84,10 +84,11 @@ def _random_state(rng):
 
 
 def test_state_init_and_pack_layout():
-    np.testing.assert_array_equal(tstate.init_cov().numpy(),
+    np.testing.assert_array_equal(tstate.init_cov(device="cpu").numpy(),
                                   np.asarray(jstate.init_cov()))
     np.testing.assert_array_equal(
-        tstate.pack_state(tstate.init_state(), tstate.init_cov()).numpy(),
+        tstate.pack_state(tstate.init_state(device="cpu"),
+                          tstate.init_cov(device="cpu")).numpy(),
         np.asarray(jstate.pack_state(jstate.init_state(), jstate.init_cov())))
     rng = np.random.default_rng(3)
     s, cov = _random_state(rng)

@@ -86,7 +86,7 @@ def _assert_maps_match(tm, jm, tcfg):
 @pytest.mark.parametrize("name", ["full", "compact", "sticky"])
 def test_update_map_sequence_matches_jax(name):
     jcfg, tcfg = _cfgs(name)
-    jm, tm = jvm.make_map(jcfg), tvm.make_map(tcfg)
+    jm, tm = jvm.make_map(jcfg), tvm.make_map(tcfg, device="cpu")
     for i, (pts, var, valid) in enumerate(_frames(seed=21)):
         compact = name == "compact" and i > 0  # the steady-state insert
         jm = jvm.update_map(jm, jnp.asarray(pts), jnp.asarray(var),
@@ -114,7 +114,7 @@ def test_insert_overflow_and_sym6_helpers():
     valid = np.ones(400, bool)
     jm = jvm.update_map(jvm.make_map(jcfg), jnp.asarray(pts), jnp.asarray(var),
                         jnp.asarray(valid), jcfg, compact=True)
-    tm = tvm.update_map(tvm.make_map(tcfg), torch.from_numpy(pts),
+    tm = tvm.update_map(tvm.make_map(tcfg, device="cpu"), torch.from_numpy(pts),
                         torch.from_numpy(var), torch.from_numpy(valid), tcfg,
                         compact=True)
     np.testing.assert_array_equal(tm.keys.numpy(), np.asarray(jm.keys))
