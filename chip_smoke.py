@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths (ONLY_LIO and full LIVO) on one
-NVIDIA GPU and hold every hand-written kernel of those paths against its
-plain PyTorch version.
+"""Drive the PyTorch port's main paths (ONLY_LIO, full LIVO and the user's
+run through the CLI, with its outputs and checkpoint/resume) on one
+NVIDIA GPU and hold every hand-written kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py
 
@@ -30,15 +31,37 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     full-width LIVO sequence (the ONLY_LIO scans plus
                     bench.py's rendered images), with the tracked-point
                     gate, K2 launches against the photometric iterations
-                    the pipeline counted, and K2's share of device time.
+                    the pipeline counted, and K2's share of device time;
+  11. kernel_gather K3 (gather_rows) against table[idx], bit for bit, at
+                    the LIO map's shape (262,144 x 128 table, 8,192 rows),
+                    the JAX test's, an odd width and an unaligned view;
+                    event, device, plain and torch.index_select times. No
+                    path runs K3 (as in the JAX package): its main-path
+                    launches are 0, its phase's count beside them;
+  12. run_cli       the user's run: the LIVO sequence saved as an npz
+                    sequence under build/, a sensor yaml of the same
+                    config, and `python -m fast_livo2_tpu_torch.run` with
+                    every output and a checkpoint, in process on "cuda":
+                    frames, ATE, the cloud, the TSDF mesh (integration on
+                    the card, extraction on the host, each timed), COLMAP,
+                    PNGs and traces;
+  13. resume        LIVO to half the frames and saved; the saving pipeline
+                    then runs on uninterrupted, while a fresh pipeline
+                    loads the checkpoint (every tensor bit for bit), runs
+                    the rest and is held to the golden tolerances against
+                    it; IMU-rate poses read before its last frame.
 
 Then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failed phase exits non-zero before
 that line; there is no CPU fallback. Imports nothing of JAX.
 """
 
+import contextlib
+import io
+import itertools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -73,6 +96,12 @@ TRACKED_GATE = 20  # tests/test_pipeline_livo.py:87
 POS_TOL_M, ROT_TOL = 8e-3, 4e-3  # tests/test_golden_trace.py tolerances
 PARITY_FRAMES = 10
 PARITY_FRAMES_LIVO = 8
+# K3: (C, W, N, group) — the LIO map's gather (2^18 slots of 128 floats,
+# 8,192 downsampled points), tests/test_eig3.py's shape, an odd width.
+GATHER_SHAPES = ((262144, 128, 8192, 128), (2048, 128, 512, 64),
+                 (2048, 13, 512, 64))
+GATHER_INDEX_SETS = 16  # 16 x 4 MiB of distinct rows > the 50 MB L2
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 class PhaseError(RuntimeError):
@@ -369,7 +398,7 @@ def phase_pipeline(seq, mode):
     after it."""
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
     from fast_livo2_tpu_torch.io import synthetic
-    from fast_livo2_tpu_torch.ops import cov_scan
+    from fast_livo2_tpu_torch.ops import cov_scan, gather
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
     cfg = full_width_config()
@@ -380,8 +409,10 @@ def phase_pipeline(seq, mode):
     torch.cuda.reset_peak_memory_stats()
     cov_scan.LAUNCHES = 0
     photo.LAUNCHES = 0
+    gather.LAUNCHES = 0
     frame_ms, syncs = drive(pipe)
-    launches = {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES}
+    launches = {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES,
+                "gather_rows": gather.LAUNCHES}
     pipe._finalize_host_views()
     traj = pipe.trajectory
     frames = len(traj)
@@ -413,6 +444,7 @@ def phase_pipeline(seq, mode):
            "host_syncs_per_frame_median": statistics.median(syncs[1:]),
            "host_syncs_per_frame_max": max(syncs[1:]),
            "cov_scan_launches": launches["cov_scan"],
+           "gather_rows_launches": launches["gather_rows"],
            "mean_n_eff": float(np.mean([r["n_eff"] for r in pipe.log.rows[1:]])),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "points_per_scan": int(np.median([len(p) for _, p, _ in seq.scans]))}
@@ -503,6 +535,208 @@ def phase_profile(seq, mode, warm=12, frames=10, top=8):
           "top_kernels_ms_per_frame": [[k[:90], v / frames] for k, v in ranked]})
 
 
+def phase_kernel_gather():
+    """K3 against its plain version, bit for bit, at GATHER_SHAPES and on
+    a table view whose base is not 16-byte aligned (the scalar path);
+    then timed at the main shape, the kernel, the plain version and
+    torch.index_select each reading GATHER_INDEX_SETS index vectors in
+    turn, so that rows come from HBM as a real caller's would."""
+    from fast_livo2_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(11)
+    gather.LAUNCHES = 0
+    shapes = []
+    for C, W, N, group in GATHER_SHAPES:
+        table = torch.from_numpy(rng.normal(size=(C, W)).astype(np.float32)).cuda()
+        idx = torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).cuda()
+        got = gather.gather_rows(table, idx, group=group)
+        torch.cuda.synchronize()
+        check(torch.equal(got, gather.gather_rows_plain(table, idx)),
+              f"K3 kernel differs from table[idx] at C={C} W={W} N={N}")
+        shapes.append([C, W, N, group])
+    flat = torch.from_numpy(rng.normal(size=2048 * 128 + 1).astype(np.float32)).cuda()
+    view = flat[1:].view(2048, 128)
+    check(view.data_ptr() % 16 != 0, "the unaligned case is aligned")
+    idx = torch.from_numpy(rng.integers(0, 2048, 512).astype(np.int32)).cuda()
+    got = gather.gather_rows(view, idx, group=64)
+    torch.cuda.synchronize()
+    check(torch.equal(got, view[idx.long()]), "K3 kernel differs on an "
+                                               "unaligned view")
+    C, W, N, group = GATHER_SHAPES[0]
+    table = torch.from_numpy(rng.normal(size=(C, W)).astype(np.float32)).cuda()
+    sets = [torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).cuda()
+            for _ in range(GATHER_INDEX_SETS)]
+    nxt = itertools.cycle(sets).__next__
+    ms = time_cuda(lambda: gather.gather_rows(table, nxt(), group=group))
+    dev_ms = device_ms(lambda: gather.gather_rows(table, nxt(), group=group),
+                       ["gather_rows_kernel"])
+    plain_ms = time_cuda(lambda: gather.gather_rows_plain(table, nxt()))
+    library_ms = time_cuda(lambda: torch.index_select(table, 0, nxt()))
+    # device time of every kernel each call launches (the plain version
+    # casts the indices, then indexes)
+    plain_dev_ms = device_ms(lambda: gather.gather_rows_plain(table, nxt()), [""])
+    library_dev_ms = device_ms(lambda: torch.index_select(table, 0, nxt()), [""])
+    # Least time: the N rows read once, written once, the indices read
+    # once; a copy does no arithmetic.
+    nbytes = 2 * N * W * 4 + N * 4
+    bound_ms, bound_by = bound(nbytes, 0)
+    row = {"name": "gather.gather_rows", "route": "cuda",
+           "source": "fast_livo2_tpu_torch/csrc/gather_rows.cu",
+           "replaces": "fast_livo2_tpu/ops/pallas_gather.py:53",
+           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    emit({"phase": "kernel_gather", "shapes_bitwise_equal": shapes,
+          "unaligned_view_bitwise_equal": True, "C": C, "W": W, "N": N,
+          "index_sets": GATHER_INDEX_SETS, "bytes": nbytes,
+          "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+          "library_device_ms": library_dev_ms,
+          "phase_launches": gather.LAUNCHES, **row})
+    return row, gather.LAUNCHES
+
+
+def sensor_yaml(path):
+    """A sensor yaml that load_config reads back as full_width_config()."""
+    import dataclasses
+
+    import yaml
+
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    cfg = full_width_config()
+    with open(path, "w") as f:
+        yaml.safe_dump({
+            "camera": dataclasses.asdict(cfg.camera),
+            "extrin_calib": {"Rcl": [float(x) for x in cfg.extrin_calib.Rcl],
+                             "Pcl": [float(x) for x in cfg.extrin_calib.Pcl]},
+            "preprocess": {"filter_size_surf": cfg.preprocess.filter_size_surf},
+        }, f)
+    check(load_config(path) == cfg, "the sensor yaml does not give "
+                                    "full_width_config()")
+
+
+def phase_run_cli(seq, frames):
+    """The user's run: `python -m fast_livo2_tpu_torch.run` in process on
+    "cuda" over the LIVO sequence saved as an npz sequence, every output
+    on and a checkpoint at the end."""
+    from fast_livo2_tpu_torch import run
+    from fast_livo2_tpu_torch.io import dataset, synthetic
+
+    root = os.path.join(REPO, "build", "smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    dataset.save_sequence(os.path.join(root, "seq"), seq)
+    save_s = time.perf_counter() - t0
+    sensor_yaml(os.path.join(root, "sensor.yaml"))
+    out = os.path.join(root, "out")
+    ck = os.path.join(root, "ck.npz")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        summary = run.main([
+            "--config", os.path.join(root, "sensor.yaml"),
+            "--seq", os.path.join(root, "seq"), "--out", out, "--pcd",
+            "--mesh", "--colmap", "--images", "--traces", "--checkpoint", ck,
+            "--device", "cuda"])
+    wall_s = time.perf_counter() - t0
+    check(json.loads(printed.getvalue().strip().splitlines()[-1]) == summary,
+          "the CLI's summary line differs from its return value")
+    check(summary["mode"] == "livo" and summary["frames"] == frames,
+          f"CLI ran {summary['frames']} {summary['mode']} frames, the "
+          f"sequence has {frames}")
+    check(summary["ate_rmse_m"] < ATE_GATE_M,
+          f"CLI ATE {summary['ate_rmse_m']} m >= {ATE_GATE_M} m")
+    # The CLI reports scripts/run_livo.py's evo convention: each 50 Hz
+    # ground-truth stamp paired with the nearest estimate within 50 ms,
+    # so motion over up to 40 ms enters the error. The pipeline phases'
+    # ATE interpolates the ground truth at each estimate instead.
+    rows = np.loadtxt(os.path.join(out, "trajectory.txt"))
+    ate_interp = synthetic.ate_rmse([(r[0], r[1:4]) for r in rows], seq.gt)
+    check(ate_interp < ATE_GATE_M, f"CLI trajectory ATE {ate_interp} m")
+    check(summary["pcd_points"] > 0 and summary["mesh_faces"] > 0
+          and summary["images"] > 0, f"empty CLI outputs: {summary}")
+    files = ["trajectory.txt", "cloud.pcd", "mesh.ply", "mat_pre.txt",
+             "mat_out.txt"] + [os.path.join("colmap", "sparse", "0", n)
+                               for n in ("cameras.txt", "images.txt",
+                                         "points3D.txt")]
+    missing = [f for f in files if not os.path.getsize(os.path.join(out, f))]
+    check(not missing and os.path.getsize(ck) > 0, f"empty outputs {missing}")
+    pngs = [f for f in os.listdir(os.path.join(out, "images"))
+            if f.endswith(".png")]
+    check(len(pngs) == summary["images"], f"{len(pngs)} PNGs written")
+    emit({"phase": "run_cli", "ate_interp_m": ate_interp,
+          "cli_wall_s": wall_s, "sequence_save_s": save_s,
+          "checkpoint_mib": os.path.getsize(ck) / 2 ** 20,
+          "mesh_grid": 256, **summary})
+
+
+def phase_resume(seq, frames):
+    """LIVO to half the frames, saved, and run on uninterrupted; the
+    checkpoint loaded into a fresh pipeline, the camera frames after the
+    cut pushed, the rest run and held against the uninterrupted run (both
+    from the same state: only the card's unordered float scatter-adds
+    part them); IMU-rate poses read before its last frame."""
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.io import checkpoint, convert
+
+    cfg = full_width_config()
+    half = frames // 2
+    a = LIVOPipeline(cfg, "livo", device="cuda")
+    a.push_sequence(seq)
+    check(a.poll(max_frames=half, flush=True) == half, "first half")
+    ck = os.path.join(REPO, "build", "smoke_resume.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(ck, a)
+    save_s = time.perf_counter() - t0
+    a.poll(flush=True)
+    a._finalize_host_views()
+    check(len(a.trajectory) == frames, f"uninterrupted run: "
+                                       f"{len(a.trajectory)} frames")
+    b = LIVOPipeline(cfg, "livo", device="cuda")
+    t0 = time.perf_counter()
+    checkpoint.load(ck, b)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    _, saved = checkpoint.read(ck)
+    loaded = dict(zip(("packed", "vmap_keys", "vmap_stats", "vmap_rec"),
+                      convert.state_to_numpy(b.packed, b.vmap_state)))
+    loaded.update(zip(("pool_point", "pool_obs", "pool_obs_patch",
+                       "pool_alloc"), convert.pool_to_numpy(b.pool)))
+    loaded.update(zip(("ring_imgs", "ring_ids"), convert.ring_to_numpy(b.ring)))
+    loaded.update({f"noise_{n}": t.cpu().numpy()
+                   for n, t in zip(type(b.noise)._fields, b.noise)})
+    loaded["prefetch_imu"] = b._prefetch[1][0].cpu().numpy()
+    loaded["prefetch_pts"] = b._prefetch[1][1].cpu().numpy()
+    differ = [k for k, v in loaded.items() if not np.array_equal(v, saved[k])]
+    check(not differ, f"loaded tensors differ from the saved ones: {differ}")
+    exposure = cfg.time_offset.exposure_time_init
+    for t, img in seq.images:
+        if t + exposure > b.last_update_time:
+            b.push_image(t, img)
+    tail = a.trajectory[half:]
+    check(b.poll(max_frames=len(tail) - 1, flush=True) == len(tail) - 1,
+          "resumed run stopped early")
+    # IMU-rate poses past the newest update, read before the last frame:
+    # the IMU stream ends before the last camera frame's capture time.
+    poses = b.imu_rate_poses()
+    b.poll(flush=True)
+    b._finalize_host_views()
+    check([t for t, _, _ in b.trajectory] == [t for t, _, _ in tail],
+          f"resumed run cut {len(b.trajectory)} frames, {len(tail)} expected")
+    dp = max(float(np.abs(x[2] - y[2]).max()) for x, y in zip(b.trajectory, tail))
+    dR = max(float(np.abs(x[1] - y[1]).max()) for x, y in zip(b.trajectory, tail))
+    check(dp <= POS_TOL_M and dR <= ROT_TOL,
+          f"resumed tail vs uninterrupted run: {dp} m, {dR}")
+    check(len(poses) > 0 and all(np.isfinite(p).all() for _, _, p, _ in poses),
+          "no IMU-rate poses past the newest update")
+    emit({"phase": "resume", "frames_before": half,
+          "frames_after": len(b.trajectory), "tensors_bitwise_equal": len(loaded),
+          "checkpoint_mib": os.path.getsize(ck) / 2 ** 20, "save_s": save_s,
+          "load_s": load_s, "max_pos_diff_m": dp, "max_rot_diff": dR,
+          "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL,
+          "imu_rate_poses": len(poses)})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -531,13 +765,19 @@ def main():
         traj, launches = phase_pipeline(seq, "livo")
         phase_parity(seq, traj, "livo", PARITY_FRAMES_LIVO)
         phase_profile(seq, "livo")
+        k3, k3_phase_launches = phase_kernel_gather()
+        phase_run_cli(seq, len(traj))
+        phase_resume(seq, len(traj))
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the LIVO main path's run, which goes through both kernels
+    # launches: the LIVO main path's run, which goes through K1 and K2;
+    # no path runs K3 (0), its own phase's count beside it
     k1["launches"] = launches["cov_scan"]
     k2["launches"] = launches["photo_iteration"]
-    emit({"kernels": [k1, k2]})
+    k3["launches"] = launches["gather_rows"]
+    k3["phase_launches"] = k3_phase_launches
+    emit({"kernels": [k1, k2, k3]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

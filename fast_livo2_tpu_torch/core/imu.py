@@ -17,7 +17,9 @@ interval i uses interval i's own midpoint rates (the reference reads the
 previous interval's rates stored at the interval-start pose).
 
 `prepare_imu_batch` (the ragged->fixed batching of one packet) is host
-numpy. `imu_rate_odometry` comes with ROADMAP.md Queue 1 item 13.
+numpy. `imu_rate_odometry` (IMU-rate poses between filter updates) is a
+Python loop over the K intervals on the device, as the JAX package's
+`lax.scan`.
 """
 
 from typing import NamedTuple
@@ -291,3 +293,27 @@ def undistort_without_imu(points: torch.Tensor, t_offs: torch.Tensor,
     R_jk = so3.exp(-state.bias_g[None, :] * dt_j[:, None])
     p_jk = -(state.rot.T @ state.vel)[None, :] * dt_j[:, None]
     return torch.einsum("nij,nj->ni", R_jk, points) + p_jk
+
+
+def imu_rate_odometry(state: NavState, batch: ImuBatch, noise: ImuNoise):
+    """IMU-rate pose output between filter updates: forward-only
+    propagation of (R, p, v) through a padded IMU batch, no covariance
+    (the 250 Hz imu_prop_callback, LIVMapper.cpp:576-635). Returns
+    (offs_end (K,), R (K, 3, 3), p (K, 3), v (K, 3), valid (K,)); padding
+    intervals (dt = 0) repeat the last pose."""
+    w = batch.gyr - state.bias_g
+    a = batch.acc * (GRAVITY / noise.mean_acc_norm) - state.bias_a
+    dExp = so3.exp(w, batch.dt[:, None])  # (K, 3, 3)
+    R, p, v = state.rot, state.pos, state.vel
+    Rs, ps, vs = [], [], []
+    for k in range(batch.dt.shape[0]):
+        dt = batch.dt[k]
+        R = R @ dExp[k]
+        acc_w = R @ a[k] + state.grav
+        p = p + v * dt + 0.5 * acc_w * dt * dt
+        v = v + acc_w * dt
+        Rs.append(R)
+        ps.append(p)
+        vs.append(v)
+    return (batch.offs_end, torch.stack(Rs), torch.stack(ps), torch.stack(vs),
+            batch.valid)

@@ -23,19 +23,32 @@ most 16 at the defaults); with map sliding enabled one 3-float position
 read every 10 frames. Trajectory and diagnostics stay on the device
 until `_finalize_host_views` converts them once, at the end.
 
+Outputs, as in the JAX package: the trajectory; with
+`pcd_save.pcd_save_en` each frame's posterior world points (coloured from
+the frame image on VIO frames) stay on the device until `save_pcd` /
+`save_mesh` read them in one transfer (the mesh is a TSDF integrated on
+the device, io/tsdf.py); `publish.pub_effect_point_en` keeps the
+plane-matched points (`effect_points`); `evo.pose_output_en` the pre/
+post-update states (`save_state_traces`); `uav.imu_rate_odom` fills
+`imu_rate_trajectory` between updates (`imu_rate_poses`); `save_images`
+dumps the frame ring with tracked points drawn on it; `export_colmap`
+writes a COLMAP text model. io/checkpoint.py saves and resumes the run.
+
 Not in this slice (the constructor raises NotImplementedError naming the
 ROADMAP.md item): raycast recovery and the inverse-compositional update,
-per-stage timing, the fused frame, point-cloud/effect-point/state-trace
-outputs, IMU-rate odometry, keyframes and online refinement.
+per-stage timing, the fused frame, keyframes and online refinement.
 """
 
 import bisect
+import os
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..io import export as export_mod
+from ..io import tsdf as tsdf_mod
 from ..models import camera as cam_mod
 from ..models import lidar as lidar_mod
 from ..ops import eig3, so3
@@ -50,12 +63,6 @@ from .state import init_cov, init_state, pack_state, unpack_state
 _UNPORTED_FLAGS = (
     (lambda c: c.tpu.stage_timing, "tpu.stage_timing", "Queue 1 item 17"),
     (lambda c: c.tpu.fused_frame, "tpu.fused_frame", "Queue 1 item 17"),
-    (lambda c: c.pcd_save.pcd_save_en, "pcd_save.pcd_save_en",
-     "Queue 1 item 13"),
-    (lambda c: c.publish.pub_effect_point_en, "publish.pub_effect_point_en",
-     "Queue 1 item 13"),
-    (lambda c: c.uav.imu_rate_odom, "uav.imu_rate_odom", "Queue 1 item 13"),
-    (lambda c: c.evo.pose_output_en, "evo.pose_output_en", "Queue 1 item 13"),
 )
 # the same, for flags that only the VIO half reads (LIVO mode)
 _UNPORTED_VIO_FLAGS = (
@@ -212,6 +219,21 @@ class LIVOPipeline:
         self.trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
         self.log = FrameLog()
         self.photo_iterations = 0  # photometric iterations run (all frames)
+        # IMU-rate poses between updates (uav/imu_rate_odom, the 250 Hz
+        # imu_prop_callback, LIVMapper.cpp:576-635): (t, R, p) host rows.
+        self.imu_rate_trajectory: List[Tuple[float, np.ndarray, np.ndarray]] = []
+        # Pre/post-update packed states (evo/pose_output_en: Log/mat_pre.txt
+        # / mat_out.txt, LIVMapper.cpp:284-286, 479-481), on the device
+        # until save_state_traces.
+        self.trace_pre: List[Tuple[float, torch.Tensor]] = []
+        self.trace_post: List[Tuple[float, torch.Tensor]] = []
+        # World-cloud accumulation (pcd_save/pcd_save_en, LIVMapper.cpp:
+        # 484-532): (pts_w, colors or None, keep, sensor position) per
+        # frame, and the plane-matched points (publish_effect_world, :446)
+        # as (t, ScanPoints); both on the device until read.
+        self._cloud_chunks: List[tuple] = []
+        self._effect_chunks: List[Tuple[float, ScanPoints]] = []
+        self.mesh_seconds: Optional[dict] = None  # save_mesh's split
         self._last_slide_pos = np.zeros(3)
         self._pos_snapshot = None  # position copy consumed at the next check
 
@@ -670,7 +692,15 @@ class LIVOPipeline:
             return False
 
         t_frame0 = time.perf_counter()
+        if self.cfg.evo.pose_output_en:
+            self.trace_pre.append((t_ev, self.packed))
         first = not self.map_inited
+        # IMU-rate odometry over the interval this frame closes, from the
+        # PREVIOUS posterior, before last_update_time advances.
+        if (self.cfg.uav.imu_rate_odom and self.slam_mode != "only_lo"
+                and not first):
+            self.imu_rate_trajectory.extend(
+                (t, R, p) for t, R, p, _ in self.imu_rate_poses(t_until=t_ev))
         if self._prefetch is not None and self._prefetch[0] == t_ev:
             imu_pack, pts_pack = self._prefetch[1]
         else:
@@ -698,6 +728,21 @@ class LIVOPipeline:
                 self.vmap_state, pg.pts_w, pg.var_w6, pg.valid, self.map_cfg,
                 compact=True)
         self.map_inited = True
+        if pg is not None:  # every frame but the map-building first
+            if self.cfg.publish.pub_effect_point_en:
+                self._effect_chunks.append((t_ev, pg))
+            if self.cfg.pcd_save.pcd_save_en:
+                # The downsampled posterior world points this frame gave
+                # the map, coloured from the frame image when VIO ran
+                # (XYZRGB), else geometry only (the reference's XYZI path).
+                colors, keep = None, pg.valid
+                if use_vio:
+                    colors, keep = vio_mod.colorize_points(
+                        img_dev.to(torch.float32), pg.pts_w, pg.valid,
+                        self.state, self.cam, self.Rci, self.Pci,
+                        blind=self.cfg.publish.blind_rgb_points)
+                self._cloud_chunks.append(
+                    (pg.pts_w, colors, keep, self.packed[9:12]))
         # Map sliding: each check consumes the position snapshot taken at
         # the previous check (a 10-frame decision lag, harmless because
         # crossing sliding_thresh takes many frames).
@@ -717,6 +762,8 @@ class LIVOPipeline:
         self._prefetch_next()
         self._ship_images()
         self._trim_imu()
+        if self.cfg.evo.pose_output_en:
+            self.trace_post.append((t_ev, self.packed))
         t_end = time.perf_counter()
         self.frame_id += 1
         # Keep device tensors; converting here would sync every frame.
@@ -759,6 +806,217 @@ class LIVOPipeline:
             r.update(n_eff=int(d[0]), mean_res=float(d[1]),
                      n_tracked=int(d[2]), n_added=int(d[3]),
                      vio_err=float(d[4]), plane_cond=float(d[5]))
+
+    def imu_rate_poses(self, t_until: Optional[float] = None):
+        """IMU-rate odometry between frame updates: forward-only
+        propagation of the last posterior through the buffered IMU samples
+        in (last_update_time, t_until] (the 250 Hz imu_prop_callback,
+        LIVMapper.cpp:576-635). Returns [(t, R (3,3), p (3,), v (3,)), ...]
+        at IMU sample times. One device-to-host read per call, so one per
+        frame with uav.imu_rate_odom (off in every shipped config), as in
+        the JAX package."""
+        if not self.imu_inited or self.last_update_time is None \
+                or not len(self._imu_t):
+            return []
+        t0 = self.last_update_time
+        t1 = self._imu_t[-1] if t_until is None else t_until
+        if t1 <= t0:
+            return []
+        st, gy, ac = self._imu_slice(t0, t1, self._imu_buf())
+        b = imu_mod.prepare_imu_batch(st, gy, ac, t0, t1,
+                                      self.cfg.tpu.max_imu_per_packet)
+        offs_end, R, p, v, valid = imu_mod.imu_rate_odometry(
+            self.state, imu_mod.ImuBatch(*(self._put(x) for x in b)),
+            self.noise)
+        host = torch.cat([offs_end[:, None], R.reshape(-1, 9), p, v,
+                          valid[:, None]], dim=1).cpu().numpy()
+        host = host[host[:, -1] > 0.5]
+        return [(t0 + float(r[0]), r[1:10].reshape(3, 3), r[10:13], r[13:16])
+                for r in host]
+
+    def effect_points(self):
+        """Per-frame effective points: the scan points that matched a map
+        plane in the final LIO iteration (publish/pub_effect_point_en ->
+        publish_effect_world, LIVMapper.cpp:446). Returns
+        [(t, pts_w (M, 3) np)], read from the device in one transfer."""
+        if not self._effect_chunks:
+            return []
+        pts = torch.stack([pg.pts_w for _, pg in self._effect_chunks])
+        keep = torch.stack([pg.valid & (pg.normal.abs().sum(dim=1) > 0)
+                            for _, pg in self._effect_chunks])
+        host = torch.cat([pts, keep[..., None].to(torch.float32)],
+                         dim=-1).cpu().numpy()
+        return [(t, h[h[:, 3] > 0.5, 0:3])
+                for (t, _), h in zip(self._effect_chunks, host)]
+
+    def print_stage_table(self, last_n: Optional[int] = None) -> str:
+        """Render the per-frame table of FrameLog rows in the reference's
+        box style (LIVMapper.cpp:465-476). Without per-stage timing
+        (tpu.stage_timing, ROADMAP.md Queue 1 item 17) it shows the host
+        split rows. Returns the string (and prints it)."""
+        from ..utils.timing import StageTable
+
+        tab = StageTable("LIVO per-frame stages")
+        for r in self.log.rows:
+            got = False
+            for k in ("host_ms", "dev_wait_ms"):
+                if k in r:
+                    tab.mark(k.replace("_ms", ""), r[k] * 1e-3)
+                    got = True
+            if got:
+                tab.end_frame()
+        out = tab.render(last_n=last_n)
+        print(out)
+        return out
+
+    def save_state_traces(self, pre_path: str, post_path: str):
+        """Write pre/post-update state rows (t, euler deg, pos, vel, bg,
+        ba, inv_expo) like Log/mat_pre.txt / mat_out.txt, one device
+        transfer per file."""
+        for path, trace in ((pre_path, self.trace_pre),
+                            (post_path, self.trace_post)):
+            if not trace:
+                continue
+            rows = torch.stack([v[0:25] for _, v in trace])
+            euler = so3.euler_zyx(rows[:, 0:9].reshape(-1, 3, 3)) * 57.3
+            # pos, vel, bias_g, bias_a (9:21) and the inverse exposure (24)
+            host = torch.cat([euler, rows[:, 9:21], rows[:, 24:25]],
+                             dim=1).cpu().numpy()
+            ts = np.array([t for t, _ in trace])
+            np.savetxt(path, np.column_stack([ts, host.astype(np.float64)]),
+                       fmt="%.6f")
+
+    def save_images(self, out_dir: str, overlay: bool = True):
+        """Dump the reference-frame ring as PNGs, optionally with tracked-
+        point overlays: each valid visual map point is projected into the
+        frame's camera pose and marked green (converged) or red (not yet),
+        the reference's plotTrackedPoints diagnostic (vio.cpp:1699-1740).
+        Host-side, at the end of the run. Returns the paths written."""
+        os.makedirs(out_dir, exist_ok=True)
+        if self.ring is None:  # no camera in this mode
+            return []
+        imgs = self.ring.imgs.cpu().numpy()
+        ids = self.ring.ids.cpu().numpy()
+        if overlay:
+            pv = vio_mod.pool_point_valid(self.pool)
+            pw = vio_mod.pool_pos(self.pool)[pv].cpu().numpy()
+            conv = vio_mod.pool_converged(self.pool)[pv].cpu().numpy()
+            Rci = self.Rci.cpu().numpy()
+            Pci = self.Pci.cpu().numpy()
+        h, w = imgs.shape[-2:]
+        written = []
+        for slot in np.argsort(ids):
+            fid = int(ids[slot])
+            if fid < 0:
+                continue
+            g = np.clip(imgs[slot], 0, 255)
+            rgb = np.repeat(g[:, :, None], 3, axis=-1)
+            if overlay and fid < len(self.trajectory) and len(pw):
+                t, R, p = self.trajectory[fid]
+                Rcw = Rci @ np.asarray(R).T
+                pc = (pw - np.asarray(p)) @ Rcw.T + Pci
+                front = pc[:, 2] > 0.1
+                px = cam_mod.world2cam(
+                    self.cam, torch.from_numpy(np.asarray(pc, np.float32))
+                ).numpy()
+                u = np.round(px[:, 0]).astype(int)
+                v = np.round(px[:, 1]).astype(int)
+                ok = front & (u >= 2) & (u < w - 2) & (v >= 2) & (v < h - 2)
+                for ui, vi, ci in zip(u[ok], v[ok], conv[ok]):
+                    color = (0, 255, 0) if ci else (255, 80, 80)
+                    rgb[vi - 1:vi + 2, ui - 1:ui + 2] = color
+            path = os.path.join(out_dir, f"{fid:05d}.png")
+            export_mod.write_png(path, rgb)
+            written.append(path)
+        return written
+
+    def _collect_cloud(self):
+        """The accumulated world cloud, read from the device in one batched
+        transfer: (pts (M, 3), rgb (M, 3) uint8 or None, per-chunk sensor
+        positions (K, 3), chunk ids (M,))."""
+        chunks = self._cloud_chunks
+        if not chunks:
+            return (np.zeros((0, 3), np.float32), None,
+                    np.zeros((0, 3), np.float32), np.zeros(0, np.int32))
+        has_color = chunks[0][1] is not None
+        cols = [torch.cat([c[0] for c in chunks]),
+                torch.cat([c[2] for c in chunks]).to(torch.float32)[:, None]]
+        if has_color:
+            cols.append(torch.cat([c[1] for c in chunks]))
+        host = torch.cat(cols, dim=1).cpu().numpy()
+        sensors = torch.stack([c[3] for c in chunks]).cpu().numpy()
+        keep = host[:, 3] > 0.5
+        n = chunks[0][0].shape[0]
+        chunk_id = np.repeat(np.arange(len(chunks), dtype=np.int32), n)
+        rgb = None
+        if has_color:
+            c = host[:, 4:]
+            if c.shape[1] == 1:
+                c = np.repeat(c, 3, axis=1)
+            rgb = np.clip(c, 0, 255).astype(np.uint8)[keep]
+        return (np.ascontiguousarray(host[keep, 0:3]), rgb, sensors,
+                chunk_id[keep])
+
+    def save_pcd(self, path: str, binary: bool = True):
+        """Write the accumulated world cloud (savePCD, LIVMapper.cpp:
+        484-532; enable with pcd_save/pcd_save_en). XYZRGB when images
+        coloured the run, XYZ otherwise. Returns the point count."""
+        pts, rgb, _, _ = self._collect_cloud()
+        export_mod.write_pcd(path, pts, colors=rgb, binary=binary)
+        return len(pts)
+
+    def save_mesh(self, path: str, grid: int = 256, min_weight: float = 1.0):
+        """Dense coloured mesh of the accumulated cloud: TSDF integration
+        on the device per frame chunk (sensor origin = that frame's
+        posterior position), then on the host marching tetrahedra, vertex
+        recolouring and a PLY (the reference's savePCD + scripts/mesh.py
+        chain in one call). Returns the face count; `mesh_seconds` holds
+        the integration time (synchronized) and the extraction time."""
+        pts, rgb, _, chunk_id = self._collect_cloud()
+        if not len(pts):
+            tsdf_mod.write_ply_mesh(path, np.zeros((0, 3)),
+                                    np.zeros((0, 3), np.int32))
+            return 0
+        t0 = time.perf_counter()
+        center = 0.5 * (pts.min(0) + pts.max(0))
+        side = float((pts.max(0) - pts.min(0)).max()) * 1.1 + 1e-3
+        vol = tsdf_mod.make_volume(center, side, grid=grid, device=self.device)
+        # The chunks integrate from where they already lie (the kept
+        # points by mask); chunks with no kept point are skipped, as the
+        # JAX package skips them.
+        for k in np.unique(chunk_id):
+            pts_w, _, keep, sensor = self._cloud_chunks[k]
+            vol = tsdf_mod.integrate(vol, pts_w, keep, sensor)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        verts, faces = tsdf_mod.extract_mesh(vol, min_weight=min_weight)
+        colors = (tsdf_mod.colorize_vertices(verts, pts, rgb)
+                  if rgb is not None and len(verts) else None)
+        tsdf_mod.write_ply_mesh(path, verts, faces, colors)
+        self.mesh_seconds = {"integrate_s": t1 - t0,
+                             "extract_s": time.perf_counter() - t1}
+        return len(faces)
+
+    def export_colmap(self, out_dir: str):
+        """COLMAP sparse-model text export of the camera trajectory and
+        the visual map points (reference vio.cpp:128-143, :1762-1784,
+        scripts/colmap_output.sh)."""
+        Rci = self.Rci.cpu().numpy()
+        Pci = self.Pci.cpu().numpy()
+        frames = []
+        for i, (t, R, p) in enumerate(self.trajectory):
+            Rcw = Rci @ R.T
+            t_cw = -Rcw @ p + Pci
+            # IMAGE_ID is 1-based (COLMAP convention); NAME matches the
+            # 0-based frame-id filenames save_images dumps.
+            frames.append((i + 1, Rcw, t_cw, f"{i:05d}.png"))
+        if self.pool is None:
+            pts3d = np.zeros((0, 3), np.float32)
+        else:
+            pts3d = vio_mod.pool_pos(self.pool)[
+                vio_mod.pool_point_valid(self.pool)].cpu().numpy()
+        export_mod.write_colmap(out_dir, self.cam, frames, points3d=pts3d)
 
     def enable_online_refine(self, *args, **kwargs):
         raise NotImplementedError(

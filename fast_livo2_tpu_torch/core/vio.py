@@ -36,9 +36,11 @@ torch.argmin/argmax document; the scatter-min/max of `_cell_argbest`
 and `rasterize_depth` are order-independent. Float-to-int casts
 truncate toward zero and integer `//` floors, as in the JAX package.
 
+`colorize_points` samples the frame at each projected scan point (the
+pipeline's coloured point-cloud accumulation).
+
 Not in this slice (the pipeline raises, naming ROADMAP.md Queue 1 item
-12): photometric_update_ic, raycast recovery, colorize_points and
-capture_photo_factors.
+12): photometric_update_ic, raycast recovery and capture_photo_factors.
 """
 
 from typing import NamedTuple
@@ -187,6 +189,24 @@ def camera_pose(state: NavState, Rci, Pci):
     Rcw = Rci @ state.rot.T
     Pcw = -Rcw @ state.pos + Pci
     return Rcw, Pcw
+
+
+def colorize_points(img, pts_w, valid, state: NavState, cam: cam_mod.Camera,
+                    Rci, Pci, blind: float = 0.0):
+    """Sample per-point image intensity/color at the projected location
+    (publish_frame_world's RGB rendering, LIVMapper.cpp:1133-1290, via
+    getInterpolatedPixel, vio.cpp:1742-1760). img: (H, W) gray or
+    (H, W, 3) float. Returns (colors (N, C), visible (N,)); colors are 0
+    where not visible."""
+    Rcw, Pcw = camera_pose(state, Rci, Pci)
+    pc = pts_w @ Rcw.T + Pcw
+    px = cam_mod.world2cam(cam, pc)
+    vis = valid & (pc[:, 2] > blind) & cam_mod.in_frame(cam, px, 1)
+    if img.dim() == 2:
+        img = img[:, :, None]
+    colors = torch.stack([img_ops.bilinear(img[:, :, c], px)
+                          for c in range(img.shape[2])], dim=-1)
+    return torch.where(vis[:, None], colors, 0.0), vis
 
 
 def _grid_cell(px: torch.Tensor, cfg: VIOConfig) -> torch.Tensor:

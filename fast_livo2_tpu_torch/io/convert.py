@@ -9,6 +9,10 @@ ring (imgs (F, H, W) f32, ids (F,) int32). Both packages exchange them
 as numpy arrays, so a module of each can start from the same state. The
 port's pool tensors carry one extra sink row (core/vio.py), added here
 and stripped on the way back.
+
+`load_jax_checkpoint` resumes a run of the JAX package in the port: it
+reads a checkpoint written by fast_livo2_tpu.io.checkpoint.save (format
+v5) as numpy arrays, without JAX.
 """
 
 import numpy as np
@@ -97,3 +101,43 @@ def ring_from_numpy(imgs, ids, device="cuda") -> FrameRing:
 
 def ring_to_numpy(ring: FrameRing):
     return ring.imgs.cpu().numpy(), ring.ids.cpu().numpy()
+
+
+# The JAX checkpoint flattens the dict {"noise", "packed", "pool", "ring",
+# "vmap"} in sorted-key order, NamedTuple fields in field order, into
+# leaf_0, leaf_1, ...: (name, leaf count). `noise` has no leaves when it
+# was still None (saved before the IMU initialised).
+_JAX_LEAVES = (("noise", 9), ("packed", 1), ("pool", 4), ("ring", 2),
+               ("vmap", 3))
+
+
+def load_jax_checkpoint(path: str, pipeline) -> None:
+    """Restore a checkpoint of the JAX package's LIVOPipeline (format v5)
+    into a freshly constructed port pipeline of the same configuration:
+    device state, host scalars, the in-flight prefetch packet (the two
+    packages' wire formats are the same bytes) and the streaming state.
+    The pool and ring are taken where the port's mode has them (LIVO).
+    Backend keyframes are not ported and raise NotImplementedError."""
+    from . import checkpoint
+
+    meta, a = checkpoint.read(path)
+    if meta.get("version", 1) < 5:
+        raise ValueError(f"{path}: JAX checkpoint version "
+                         f"{meta.get('version', 1)} predates the v5 voxel-map "
+                         "layout (keys, stats, rec)")
+    if "kf_t" in a or "refined_t" in a:
+        raise NotImplementedError(
+            "the checkpoint carries backend keyframes; keyframes and online "
+            "refinement are not ported yet: ROADMAP.md Queue 1 item 15")
+    n_leaves = sum(k.startswith("leaf_") for k in a)
+    names = _JAX_LEAVES if n_leaves == 19 else _JAX_LEAVES[1:]
+    if n_leaves != sum(n for _, n in names):
+        raise ValueError(f"{path}: {n_leaves} state leaves, expected 19 "
+                         "(or 10 before the IMU initialised)")
+    leaves, i = {}, 0
+    for name, n in names:
+        leaves[name] = [a[f"leaf_{i + j}"] for j in range(n)]
+        i += n
+    checkpoint.restore(pipeline, meta, a, packed=leaves["packed"][0],
+                       vmap=leaves["vmap"], pool=leaves["pool"],
+                       ring=leaves["ring"], noise=leaves.get("noise"))

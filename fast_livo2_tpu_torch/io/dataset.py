@@ -20,8 +20,8 @@ The reader applies the reference's time-offset knobs
 LIVMapper.cpp:71-75) and image scale resize, and exposes the same
 duck-typed interface as io.synthetic.SyntheticSequence.
 
-The PyTorch port's own copy of fast_livo2_tpu/io/dataset.py; the two
-quaternion helpers of fast_livo2_tpu/io/export.py it needs live here.
+The PyTorch port's own copy of fast_livo2_tpu/io/dataset.py; its
+quaternion helpers come from the port's io/export.py.
 """
 
 import os
@@ -29,6 +29,8 @@ from dataclasses import dataclass, field
 from typing import List, Tuple
 
 import numpy as np
+
+from .export import _quat_to_R, _quat_xyzw
 
 
 def resize_half(img: np.ndarray, times: int) -> np.ndarray:
@@ -40,38 +42,6 @@ def resize_half(img: np.ndarray, times: int) -> np.ndarray:
         out = out[: h // 2 * 2, : w // 2 * 2]
         out = 0.25 * (out[0::2, 0::2] + out[1::2, 0::2] + out[0::2, 1::2] + out[1::2, 1::2])
     return out
-
-
-def _quat_xyzw(R: np.ndarray) -> np.ndarray:
-    """Rotation matrix -> quaternion (x, y, z, w), robust branch."""
-    q = np.empty(4)
-    tr = np.trace(R)
-    if tr > 0:
-        s = np.sqrt(tr + 1.0) * 2
-        q[:] = [(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
-                (R[1, 0] - R[0, 1]) / s, 0.25 * s]
-    else:
-        i = int(np.argmax(np.diag(R)))
-        j, k = (i + 1) % 3, (i + 2) % 3
-        s = np.sqrt(R[i, i] - R[j, j] - R[k, k] + 1.0) * 2
-        v = np.empty(3)
-        v[i] = 0.25 * s
-        v[j] = (R[j, i] + R[i, j]) / s
-        v[k] = (R[k, i] + R[i, k]) / s
-        q[:3] = v
-        q[3] = (R[k, j] - R[j, k]) / s
-    return q / np.linalg.norm(q)
-
-
-def _quat_to_R(q_xyzw: np.ndarray) -> np.ndarray:
-    x, y, z, w = q_xyzw
-    return np.array(
-        [
-            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-        ]
-    )
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fast_livo2_tpu_torch.ops import cov_scan
+from fast_livo2_tpu_torch.ops import gather
 from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
 # tests/test_imu.py:176-177: two float32 evaluation orders of the same
@@ -204,3 +205,59 @@ def test_livo_on_card_matches_cpu():
                                np.array([p for _, _, p in cpu]), atol=8e-3)
     np.testing.assert_allclose(np.array([R for _, R, _ in gpu]),
                                np.array([R for _, R, _ in cpu]), atol=4e-3)
+
+
+def _gather_inputs(C, W, N, seed=0):
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(size=(C, W)).astype(np.float32)).cuda()
+    idx = torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).cuda()
+    return table, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,W,N,group", [
+    (262144, 128, 8192, 128), (2048, 128, 512, 64), (2048, 13, 512, 64),
+    (100, 1, 64, 64)])
+def test_gather_rows_kernel_matches_plain_bitwise(C, W, N, group):
+    """K3 against table[idx] on the card: the LIO map's shape (16-byte
+    path), tests/test_eig3.py's, an odd width and a one-float width
+    (scalar path). A gather moves bytes only: equal bit for bit."""
+    _need_card()
+    table, idx = _gather_inputs(C, W, N)
+    before = gather.LAUNCHES
+    got = gather.gather_rows(table, idx, group=group)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_gather_rows_kernel_on_unaligned_view():
+    """A table view starting one float into its storage: W % 4 == 0 but
+    the base is not 16-byte aligned, so the wrapper takes the scalar path."""
+    _need_card()
+    flat = torch.arange(2048 * 128 + 1, dtype=torch.float32, device="cuda")
+    table = flat[1:].view(2048, 128)
+    assert table.data_ptr() % 16 != 0
+    _, idx = _gather_inputs(2048, 128, 256)
+    got = gather.gather_rows(table, idx, group=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, table[idx.long()])
+
+
+@pytest.mark.cuda
+def test_gather_rows_wrapper_rejects_bad_input():
+    _need_card()
+    table, idx = _gather_inputs(64, 8, 128)
+    before = gather.LAUNCHES
+    with pytest.raises(TypeError):
+        gather.gather_rows(table.double(), idx)
+    with pytest.raises(TypeError):
+        gather.gather_rows(table, idx.long())
+    with pytest.raises(ValueError):
+        gather.gather_rows(table.t(), idx, group=64)
+    with pytest.raises(ValueError):
+        gather.gather_rows(table, idx.cpu())
+    with pytest.raises(ValueError):
+        gather.gather_rows(table, idx[:100], group=64)
+    assert gather.LAUNCHES == before

@@ -1,6 +1,6 @@
 """The port's ONLY_LIO pipeline on the CPU: the committed golden trajectory,
 both points wire formats, and the modes and flags the port does not
-have yet.
+have yet (the output flags it has).
 
 Tolerances of the golden (tests/test_golden_trace.py): timestamps 1e-6 s,
 positions 8e-3 m, rotation entries 4e-3 — cross-backend float noise over
@@ -116,11 +116,14 @@ def test_unported_modes_and_flags_raise():
         setattr(cfg.vio, flag, True)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LIVOPipeline(cfg, slam_mode="livo", device="cpu")
+    for section, flag in (("pcd_save", "pcd_save_en"),
+                          ("publish", "pub_effect_point_en"),
+                          ("uav", "imu_rate_odom"), ("evo", "pose_output_en")):
+        cfg = small_config()  # the outputs are ported
+        setattr(getattr(cfg, section), flag, True)
+        LIVOPipeline(cfg, slam_mode="only_lio", device="cpu")
     setters = [lambda c: setattr(c.tpu, "stage_timing", True),
-               lambda c: setattr(c.tpu, "fused_frame", True),
-               lambda c: setattr(c.pcd_save, "pcd_save_en", True),
-               lambda c: setattr(c.publish, "pub_effect_point_en", True),
-               lambda c: setattr(c.uav, "imu_rate_odom", True)]
+               lambda c: setattr(c.tpu, "fused_frame", True)]
     for set_flag in setters:
         cfg = small_config()
         set_flag(cfg)
