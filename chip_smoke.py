@@ -16,9 +16,16 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
   3. kernel         K1 (cov_scan) against its plain version on the card at
                     the main path's shapes (K = 64, D = 19), both timed;
   4. kernel_photo   K2 (photo_iteration) against its plain version on a
-                    rendered 640 x 512 frame with M = 396 points, stride
-                    exponents 0-5 (the clamp to 4 bites), some points
-                    masked, with and without distortion; both timed;
+                    rendered 640 x 512 frame with M in {0, 1, 7, 9, 396,
+                    4096} points (396 on the main path), stride exponents
+                    0-5 (the clamp to 4 bites), some points masked, with
+                    and without distortion; bitwise the same over 20
+                    calls and across calls at another M (the last-block
+                    ticket is reset); one device kernel a call; timed;
+  4b. side_stream   the three wrappers once on a side stream
+                    (torch.cuda.stream(s)) against their plain versions,
+                    and the raw stream the launch path reads equal to
+                    s.cuda_stream;
   5. pipeline       the full-width ONLY_LIO sequence on "cuda": frames,
                     ATE against ground truth, per-frame wall time, host
                     syncs per frame, K1 launches;
@@ -35,8 +42,10 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
   11. kernel_gather K3 (gather_rows) against table[idx], bit for bit, at
                     the LIO map's shape (262,144 x 128 table, 8,192 rows),
                     the JAX test's, an odd width and an unaligned view;
-                    event, device, plain and torch.index_select times. No
-                    path runs K3 (as in the JAX package): its main-path
+                    event times of K3 and torch.index_select in turns
+                    (library, kernel, kernel, library), device, plain and
+                    host times, and the wrapper's host time step by step.
+                    No path runs K3 (as in the JAX package): its main-path
                     launches are 0, its phase's count beside them;
   12. run_cli       the user's run: the LIVO sequence saved as an npz
                     sequence under build/, a sensor yaml of the same
@@ -53,7 +62,19 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
 
 Then the `kernels` line, the card's name and power limit, and as the last
 line {"ok": true, "device": {...}}. Any failed phase exits non-zero before
-that line; there is no CPU fallback. Imports nothing of JAX.
+that line; there is no CPU fallback. Imports nothing of JAX. Every
+kernel phase reports `ms` (CUDA events around 100 back-to-back calls),
+`host_us` (time.perf_counter around 1,000 calls), `device_ms` and the
+device kernels a call (torch.profiler).
+
+    python3 chip_smoke.py --turns OTHER_ROOT
+
+times the three wrappers and torch.index_select and profiles steady
+LIVO frames (`kernel_times`) in four processes in turns, OTHER_ROOT's
+package, this one's, this one's, OTHER_ROOT's (e.g. the parent commit
+unpacked with `git archive` under build/), each building its own
+kernels, and prints one `turns` line. `--kernel-times ROOT` is one such
+process.
 """
 
 import contextlib
@@ -101,6 +122,8 @@ PARITY_FRAMES_LIVO = 8
 GATHER_SHAPES = ((262144, 128, 8192, 128), (2048, 128, 512, 64),
                  (2048, 13, 512, 64))
 GATHER_INDEX_SETS = 16  # 16 x 4 MiB of distinct rows > the 50 MB L2
+K2_SWEEP = (0, 1, 7, 9, M_MAIN, 4096)  # a block holds 8 points
+K2_REPEATS = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -137,23 +160,59 @@ def time_cuda(fn, reps=7, calls=100, warmup=20):
     return statistics.median(times)
 
 
-def device_ms(fn, names, calls=50):
-    """Device time per call of fn(), summed over the kernels whose names
-    contain one of `names`, from torch.profiler over `calls` calls. Where
-    the host cannot enqueue calls faster than the card runs them, this is
-    below time_cuda's per-call time, which then measures the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
+def host_us(fn, calls=1000, batch=100, warmup=20):
+    """Host microseconds per call of fn(): time.perf_counter around
+    `calls` calls after `warmup`, `batch` at a time with an untimed
+    synchronize between batches, so that the launch queue never fills
+    and blocks the host on the card."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    total = 0.0
+    for _ in range(calls // batch):
+        t0 = time.perf_counter()
+        for _ in range(batch):
             fn()
+        total += time.perf_counter() - t0
         torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(n in e.name for n in names))
-    return us / 1e3 / calls
+    return total / calls * 1e6
+
+
+def device_profile(fn, calls=50):
+    """(device kernels a call, {kernel name: device ms a call}) of fn(),
+    from torch.profiler over `calls` calls, recorded in the second of two
+    cycles (the first warms the tracer up: events right after it starts
+    can be missed). Where the host cannot enqueue calls faster than the
+    card runs them, the device time is below time_cuda's per-call time,
+    which then measures the host."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    recorded = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(
+                     [(e.name, e.device_time) for e in p.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA])) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    by_name = {}
+    for name, us in recorded[-1]:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3 / calls
+    return len(recorded[-1]) / calls, by_name
+
+
+def timings(fn, event=True):
+    """A wrapper's times: event ms (unless `event` is false), host us and
+    device ms a call, the device kernels a call and their device ms by
+    kernel name."""
+    per_call, by_name = device_profile(fn)
+    return {**({"ms": time_cuda(fn)} if event else {}), "host_us": host_us(fn),
+            "device_ms": sum(by_name.values()),
+            "device_kernels_per_call": per_call,
+            "device_ms_by_kernel": {k[:90]: v for k, v in by_name.items()}}
 
 
 def bound(nbytes, flops):
@@ -163,12 +222,17 @@ def bound(nbytes, flops):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 def phase_device():
     from fast_livo2_tpu_torch.ops import precision
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi()
     check(precision.policy_ok(), f"float32 precision policy off: {precision.policy()}")
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "count": torch.cuda.device_count(),
@@ -212,9 +276,9 @@ def phase_kernel():
     check(torch.isfinite(got).all().item(), "cov_scan kernel: non-finite output")
     check(ok, f"cov_scan kernel disagrees with its plain version: "
               f"max_abs_err {max_abs_err}")
-    ms = time_cuda(lambda: cov_scan.propagate_cov(F, Q, P0))
-    dev_ms = device_ms(lambda: cov_scan.propagate_cov(F, Q, P0),
-                       ["cov_scan_kernel"])
+    t = timings(lambda: cov_scan.propagate_cov(F, Q, P0))
+    check(t["device_kernels_per_call"] == 1,
+          f"cov_scan: {t['device_kernels_per_call']} device kernels a call")
     plain_ms = time_cuda(lambda: cov_scan.propagate_cov_plain(F, Q, P0))
     # Least time for the same work: each input read once, the output
     # written once; two D x D x D products per step, 2 FLOP per FMA.
@@ -224,13 +288,13 @@ def phase_kernel():
     row = {"name": "cov_scan.propagate_cov", "route": "cuda",
            "source": "fast_livo2_tpu_torch/csrc/cov_scan.cu",
            "replaces": "fast_livo2_tpu/ops/cov_scan.py:69",
-           "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": max_abs_err, "ms": t["ms"], "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            # No single PyTorch call computes this K-step recursion.
-           "library_ms": None}
+           "library_ms": None, "device_ms": t["device_ms"],
+           "host_us": t["host_us"]}
     emit({"phase": "kernel", "K": K_MAIN, "D": D_STATE, "rtol": RTOL_K1,
-          "atol": ATOL_K1, "bytes": nbytes, "flops": flops,
-          "device_ms": dev_ms, **row})
+          "atol": ATOL_K1, "bytes": nbytes, "flops": flops, **t, **row})
     return row
 
 
@@ -262,36 +326,67 @@ def k2_inputs(img, with_dist, seed=7, M=M_MAIN):
     return img, meta, refp, par
 
 
+def check_k2(got, want, what):
+    """Hold one K2 result to its plain version at the stated tolerances.
+    Returns (max_abs_err, max_err_over_block_max)."""
+    max_abs = max_rel = 0.0
+    for name, g, w in zip(("HTH", "HTz"), got[:2], want[:2]):
+        check(torch.isfinite(g).all().item(), f"K2 {what}: non-finite {name}")
+        w_max = float(w.abs().max())
+        d = (g - w).abs()
+        max_abs = max(max_abs, float(d.max()))
+        if w_max:
+            max_rel = max(max_rel, float(d.max()) / w_max)
+        check(bool(torch.all(d <= BLOCK_ATOL_K2 * w_max + RTOL_K2 * w.abs())),
+              f"K2 {what}: {name} disagrees with its plain version: "
+              f"max_abs_err {float(d.max())}")
+    d_err = abs(float(got[2]) - float(want[2]))
+    check(d_err <= RTOL_ERR_K2 * abs(float(want[2])),
+          f"K2 {what}: err {float(got[2])} vs plain {float(want[2])}")
+    check(float(got[3]) == float(want[3]),
+          f"K2 {what}: cnt {float(got[3])} vs plain {float(want[3])}")
+    return max(max_abs, d_err), max_rel
+
+
+def k2_flat(out):
+    """The four outputs of one K2 call as one (58,) tensor."""
+    return torch.cat([out[0].reshape(-1), out[1], out[2].reshape(1),
+                      out[3].reshape(1)])
+
+
 def phase_kernel_photo(seq):
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
     frame = seq.images[len(seq.images) // 2][1]  # a rendered 512 x 640 frame
     img = torch.from_numpy(np.ascontiguousarray(frame, np.float32)).cuda()
-    max_abs_err = max_rel_err = 0.0
-    for with_dist in (False, True):
-        args = k2_inputs(img, with_dist)
-        got = photo.photo_iteration(*args)
-        torch.cuda.synchronize()
-        want = photo.photo_iteration_plain(*args)
-        for name, g, w in zip(("HTH", "HTz"), got[:2], want[:2]):
-            check(torch.isfinite(g).all().item(), f"K2 kernel: non-finite {name}")
-            tol = BLOCK_ATOL_K2 * float(w.abs().max()) + RTOL_K2 * w.abs()
-            d = (g - w).abs()
-            max_abs_err = max(max_abs_err, float(d.max()))
-            max_rel_err = max(max_rel_err, float(d.max() / w.abs().max()))
-            check(bool(torch.all(d <= tol)),
-                  f"K2 kernel {name} disagrees with its plain version "
-                  f"(dist={with_dist}): max_abs_err {float(d.max())}")
-        d_err = abs(float(got[2]) - float(want[2]))
-        max_abs_err = max(max_abs_err, d_err)
-        check(d_err <= RTOL_ERR_K2 * abs(float(want[2])),
-              f"K2 kernel err {float(got[2])} vs plain {float(want[2])}")
-        check(float(got[3]) == float(want[3]),
-              f"K2 kernel cnt {float(got[3])} vs plain {float(want[3])}")
+    max_abs_err = max_rel_err = 0.0  # at the main path's M
+    sweep_err = 0.0
+    for M in K2_SWEEP:
+        for with_dist in (False, True):
+            args = k2_inputs(img, with_dist, M=M)
+            before = photo.LAUNCHES
+            got = photo.photo_iteration(*args)
+            torch.cuda.synchronize()
+            check(photo.LAUNCHES == before + 1, "K2: no launch counted")
+            a, r = check_k2(got, photo.photo_iteration_plain(*args),
+                            f"M={M} dist={with_dist}")
+            sweep_err = max(sweep_err, r)
+            if M == M_MAIN:
+                max_abs_err, max_rel_err = max(max_abs_err, a), max(max_rel_err, r)
+    # The same bits from run to run, with calls at other M (other grids,
+    # so another block draws the last ticket) in between.
     args = k2_inputs(img, False)
-    ms = time_cuda(lambda: photo.photo_iteration(*args))
-    dev_ms = device_ms(lambda: photo.photo_iteration(*args),
-                       ["photo_rows_kernel", "photo_sum_kernel"])
+    others = [k2_inputs(img, False, M=M) for M in (7, 4096)]
+    first = k2_flat(photo.photo_iteration(*args))
+    for k in range(K2_REPEATS):
+        check(torch.equal(k2_flat(photo.photo_iteration(*args)), first),
+              f"K2 not bitwise repeatable at call {k + 1}")
+        photo.photo_iteration(*others[k % 2])
+    t = timings(lambda: photo.photo_iteration(*args))
+    check(t["device_kernels_per_call"] == 1
+          and all("photo_iteration_kernel" in k for k in t["device_ms_by_kernel"]),
+          f"K2: device kernels a call {t['device_kernels_per_call']}: "
+          f"{list(t['device_ms_by_kernel'])}")
     plain_ms = time_cuda(lambda: photo.photo_iteration_plain(*args), calls=20)
     # Least time: the distinct image taps the windows read, the point
     # inputs and the parameter row read once, the 64-float output written
@@ -304,18 +399,58 @@ def phase_kernel_photo(seq):
     row = {"name": "photo_iteration.photo_iteration", "route": "cuda",
            "source": "fast_livo2_tpu_torch/csrc/photo_iteration.cu",
            "replaces": "fast_livo2_tpu/ops/pallas_photo.py:204",
-           "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": max_abs_err, "ms": t["ms"], "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
            # No single PyTorch call computes the fused projection, strided
            # bilinear sampling, Jacobian chain and 7 x 7 reduction.
-           "library_ms": None}
+           "library_ms": None, "device_ms": t["device_ms"],
+           "host_us": t["host_us"]}
     emit({"phase": "kernel_photo", "M": M, "H": int(img.shape[0]),
           "W": int(img.shape[1]), "slog_max": 5,
           "max_scale_log2": photo.clamp_scale_log2(int(img.shape[1])),
           "rtol": RTOL_K2, "block_atol": BLOCK_ATOL_K2,
-          "max_err_over_block_max": max_rel_err, "distinct_taps": taps,
-          "bytes": nbytes, "flops": flops, "device_ms": dev_ms, **row})
-    return row
+          "max_err_over_block_max": max_rel_err, "M_sweep": list(K2_SWEEP),
+          "sweep_max_err_over_block_max": sweep_err,
+          "bitwise_repeats": K2_REPEATS, "distinct_taps": taps,
+          "bytes": nbytes, "flops": flops, **t, **row})
+    return row, img
+
+
+def phase_side_stream(img):
+    """Each wrapper launched once inside torch.cuda.stream(side), held
+    against its plain version; the raw stream the launch path reads
+    there is the side stream's."""
+    from fast_livo2_tpu_torch.ops import _launch, cov_scan, gather
+    from fast_livo2_tpu_torch.ops import photo_iteration as photo
+
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in k1_inputs(K_MAIN, D_STATE))
+    k2 = k2_inputs(img, True)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(4096, 128)).astype(np.float32)).cuda()
+    idx = torch.from_numpy(rng.integers(0, 4096, 1024).astype(np.int32)).cuda()
+    counts = (cov_scan.LAUNCHES, photo.LAUNCHES, gather.LAUNCHES)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        raw = _launch.raw_stream(torch.cuda.current_device())
+        cov = cov_scan.propagate_cov(F, Q, P0)
+        pho = photo.photo_iteration(*k2)
+        gat = gather.gather_rows(table, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    check(raw == side.cuda_stream != torch.cuda.current_stream().cuda_stream,
+          f"raw stream {raw}, side stream {side.cuda_stream}")
+    check((cov_scan.LAUNCHES, photo.LAUNCHES, gather.LAUNCHES)
+          == tuple(c + 1 for c in counts), "side stream: launches not counted")
+    want = cov_scan.propagate_cov_plain(F, Q, P0)
+    check(bool(torch.all((cov - want).abs() <= ATOL_K1 + RTOL_K1 * want.abs())),
+          "K1 on a side stream disagrees with its plain version")
+    check_k2(pho, photo.photo_iteration_plain(*k2), "side stream")
+    check(torch.equal(gat, gather.gather_rows_plain(table, idx)),
+          "K3 on a side stream differs from table[idx]")
+    emit({"phase": "side_stream", "stream": side.cuda_stream,
+          "raw_stream_equal": True, "kernels": ["cov_scan", "photo_iteration",
+                                                "gather_rows"]})
 
 
 def camera_config():
@@ -496,12 +631,26 @@ def phase_parity(seq, traj_cuda, mode, frames):
           "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL, "cpu_seconds": secs})
 
 
+def is_k2_kernel(name):
+    """A device kernel of K2: this tree's one kernel, or either stage of
+    the two-launch design it replaced (photo_rows_kernel, then
+    photo_sum_kernel), so that `--kernel-times` counts an older tree's."""
+    return any(k in name for k in ("photo_iteration_kernel",
+                                   "photo_rows_kernel", "photo_sum_kernel"))
+
+
 def phase_profile(seq, mode, warm=12, frames=10, top=8):
+    emit({"phase": "profile" if mode == "only_lio" else "profile_livo",
+          **profile_frames(seq, mode, warm, frames, top)})
+
+
+def profile_frames(seq, mode, warm=12, frames=10, top=8):
     """Where a steady frame's time goes: `frames` frames after `warm`
     unprofiled ones, under torch.profiler. Reports wall and summed kernel
     time per frame, the device's idle share of the wall time, the kernel
-    launches per frame, the kernels that take the most time and K2's
-    share of the kernel time."""
+    launches per frame, the kernels that take the most time, K2's share
+    of the kernel time, its device kernels and the photometric iterations
+    the frames ran (the launches a frame move with them)."""
     from torch.profiler import ProfilerActivity, profile
 
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
@@ -510,11 +659,13 @@ def phase_profile(seq, mode, warm=12, frames=10, top=8):
     pipe.push_sequence(seq)
     pipe.poll(max_frames=warm, flush=True)
     torch.cuda.synchronize()
+    iterations = pipe.photo_iterations
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         n = pipe.poll(max_frames=frames, flush=True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    iterations = pipe.photo_iterations - iterations
     check(n == frames, f"profiled {n} frames, wanted {frames}")
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3  # us -> ms
@@ -522,25 +673,90 @@ def phase_profile(seq, mode, warm=12, frames=10, top=8):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    k2_ms = sum(v for k, v in by_name.items()
-                if "photo_rows_kernel" in k or "photo_sum_kernel" in k)
-    emit({"phase": "profile" if mode == "only_lio" else "profile_livo",
-          "frames": frames,
-          "wall_ms_per_frame": wall_ms / frames,
-          "kernel_ms_per_frame": busy_ms / frames,
-          "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
-          "kernel_launches_per_frame": len(kernels) / frames,
-          "photo_iteration_ms_per_frame": k2_ms / frames,
-          "photo_iteration_share_of_kernel_time": (k2_ms / busy_ms) if busy_ms else None,
-          "top_kernels_ms_per_frame": [[k[:90], v / frames] for k, v in ranked]})
+    k2_ms = sum(v for k, v in by_name.items() if is_k2_kernel(k))
+    k2_kernels = sum(is_k2_kernel(e.name) for e in kernels)
+    return {"frames": frames,
+            "wall_ms_per_frame": wall_ms / frames,
+            "kernel_ms_per_frame": busy_ms / frames,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
+            "kernel_launches_per_frame": len(kernels) / frames,
+            "photo_iteration_ms_per_frame": k2_ms / frames,
+            "photo_iteration_kernels_per_frame": k2_kernels / frames,
+            "photo_iterations_per_frame": iterations / frames,
+            "photo_iteration_share_of_kernel_time": (k2_ms / busy_ms) if busy_ms else None,
+            "top_kernels_ms_per_frame": [[k[:90], v / frames] for k, v in ranked]}
+
+
+def gather_timing_inputs(rng):
+    """The LIO map's gather: a (262,144, 128) table and GATHER_INDEX_SETS
+    index vectors of 8,192 rows, handed out in turn so that the rows come
+    from HBM as a real caller's would. Returns (table, next index, group)."""
+    C, W, N, group = GATHER_SHAPES[0]
+    table = torch.from_numpy(rng.normal(size=(C, W)).astype(np.float32)).cuda()
+    sets = [torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).cuda()
+            for _ in range(GATHER_INDEX_SETS)]
+    return table, itertools.cycle(sets).__next__, group
+
+
+def gather_host_steps(table, idx, repeats=5):
+    """The K3 wrapper's host microseconds a call, step by step: the whole
+    call, `new_empty`, the raw stream, the ctypes call with N = 0 (argument
+    conversion and the C entry, which launches nothing) and with N (the
+    launch added). Each step is timed `repeats` times in turn over 200
+    calls, the median kept; steps timed alone need not add up to the
+    call. Beside them, the profiler's CPU-side view of the call and of
+    torch.index_select (`cpu_view`)."""
+    from fast_livo2_tpu_torch.ops import _launch, gather
+
+    dev = table.get_device()
+    n, w = idx.shape[0], table.shape[1]
+    ptrs = (table.data_ptr(), idx.data_ptr(), table.new_empty((n, w)).data_ptr())
+    fn = gather._kernel()
+    stream = _launch.raw_stream(dev)
+    fns = {"call": lambda: gather.gather_rows(table, idx),
+           "new_empty": lambda: table.new_empty((n, w)),
+           "raw_stream": lambda: _launch.raw_stream(dev),
+           "ctypes_entry": lambda: fn(*ptrs, 0, w, dev, stream),
+           "ctypes_entry_and_launch": lambda: fn(*ptrs, n, w, dev, stream)}
+    runs = {k: [] for k in fns}
+    for _ in range(repeats):
+        for k, f in fns.items():
+            runs[k].append(host_us(f, calls=200))
+    steps = {k: statistics.median(v) for k, v in runs.items()}
+    steps["c_launch"] = steps["ctypes_entry_and_launch"] - steps["ctypes_entry"]
+    steps["profiler_cpu_us"] = {
+        "gather_rows": cpu_view(fns["call"]),
+        "index_select": cpu_view(lambda: torch.index_select(table, 0, idx))}
+    return steps
+
+
+def cpu_view(fn, calls=200, top=6):
+    """The host's microseconds a call by event, from torch.profiler's
+    CPU-side view (self time: ATen ops, CUDA runtime calls such as
+    cudaLaunchKernel) over `calls` calls; the profiler's own cost is in
+    them, so they compare only with each other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_cpu_time_total / calls)
+                   for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0 and "Synchronize" not in e.key),
+                  key=lambda kv: -kv[1])
+    return dict(rows[:top])
 
 
 def phase_kernel_gather():
     """K3 against its plain version, bit for bit, at GATHER_SHAPES and on
     a table view whose base is not 16-byte aligned (the scalar path);
-    then timed at the main shape, the kernel, the plain version and
-    torch.index_select each reading GATHER_INDEX_SETS index vectors in
-    turn, so that rows come from HBM as a real caller's would."""
+    then timed at the main shape, the kernel and torch.index_select in
+    turns (library, kernel, kernel, library), each reading
+    GATHER_INDEX_SETS index vectors in turn; the plain version beside
+    them, and the wrapper's host time step by step."""
     from fast_livo2_tpu_torch.ops import gather
 
     rng = np.random.default_rng(11)
@@ -562,37 +778,52 @@ def phase_kernel_gather():
     torch.cuda.synchronize()
     check(torch.equal(got, view[idx.long()]), "K3 kernel differs on an "
                                                "unaligned view")
-    C, W, N, group = GATHER_SHAPES[0]
-    table = torch.from_numpy(rng.normal(size=(C, W)).astype(np.float32)).cuda()
-    sets = [torch.from_numpy(rng.integers(0, C, N).astype(np.int32)).cuda()
-            for _ in range(GATHER_INDEX_SETS)]
-    nxt = itertools.cycle(sets).__next__
-    ms = time_cuda(lambda: gather.gather_rows(table, nxt(), group=group))
-    dev_ms = device_ms(lambda: gather.gather_rows(table, nxt(), group=group),
-                       ["gather_rows_kernel"])
+    table, nxt, group = gather_timing_inputs(rng)
+    t = gather_timings(table, nxt, group)
     plain_ms = time_cuda(lambda: gather.gather_rows_plain(table, nxt()))
-    library_ms = time_cuda(lambda: torch.index_select(table, 0, nxt()))
     # device time of every kernel each call launches (the plain version
     # casts the indices, then indexes)
-    plain_dev_ms = device_ms(lambda: gather.gather_rows_plain(table, nxt()), [""])
-    library_dev_ms = device_ms(lambda: torch.index_select(table, 0, nxt()), [""])
+    plain_dev_ms = sum(device_profile(
+        lambda: gather.gather_rows_plain(table, nxt()))[1].values())
+    steps = gather_host_steps(table, nxt())
     # Least time: the N rows read once, written once, the indices read
     # once; a copy does no arithmetic.
+    C, W, N, _ = GATHER_SHAPES[0]
     nbytes = 2 * N * W * 4 + N * 4
     bound_ms, bound_by = bound(nbytes, 0)
     row = {"name": "gather.gather_rows", "route": "cuda",
            "source": "fast_livo2_tpu_torch/csrc/gather_rows.cu",
            "replaces": "fast_livo2_tpu/ops/pallas_gather.py:53",
-           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "max_abs_err": 0.0, "ms": t["gather_rows"]["ms"],
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": t["index_select"]["ms"],
+           "device_ms": t["gather_rows"]["device_ms"],
+           "host_us": t["gather_rows"]["host_us"],
+           "library_host_us": t["index_select"]["host_us"]}
     emit({"phase": "kernel_gather", "shapes_bitwise_equal": shapes,
           "unaligned_view_bitwise_equal": True, "C": C, "W": W, "N": N,
           "index_sets": GATHER_INDEX_SETS, "bytes": nbytes,
-          "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
-          "library_device_ms": library_dev_ms,
-          "phase_launches": gather.LAUNCHES, **row})
+          "plain_device_ms": plain_dev_ms, "timings": t,
+          "host_us_steps": steps, "phase_launches": gather.LAUNCHES, **row})
     return row, gather.LAUNCHES
+
+
+def gather_timings(table, nxt, group):
+    """K3 and torch.index_select on the same index vectors: event ms in
+    turns (library, kernel, kernel, library; `ms` the mean of a pair),
+    then host us and device ms of each."""
+    from fast_livo2_tpu_torch.ops import gather
+
+    fns = {"gather_rows": lambda: gather.gather_rows(table, nxt(), group=group),
+           "index_select": lambda: torch.index_select(table, 0, nxt())}
+    order = ("index_select", "gather_rows", "gather_rows", "index_select")
+    out = {k: {"ms_turns": []} for k in fns}
+    for k in order:
+        out[k]["ms_turns"].append(time_cuda(fns[k]))
+    for k, fn in fns.items():
+        out[k]["ms"] = statistics.mean(out[k]["ms_turns"])
+        out[k].update(timings(fn, event=False))
+    return out
 
 
 def sensor_yaml(path):
@@ -737,17 +968,78 @@ def phase_resume(seq, frames):
           "imu_rate_poses": len(poses)})
 
 
-def main():
+def smooth_image(H, W, seed=0):
+    """A smooth DN-scale (H, W) float32 image (a doubly integrated noise
+    field scaled to 0-255)."""
+    rng = np.random.default_rng(seed)
+    img = np.cumsum(np.cumsum(rng.standard_normal((H, W)), 0), 1)
+    return ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.float32)
+
+
+def kernel_times():
+    """The three wrappers' and torch.index_select's times at the main
+    path's shapes, then steady full-width LIVO frames under the profiler,
+    through the package's public API alone (the wrappers and
+    LIVOPipeline, unchanged since it was written), so that
+    `--kernel-times ROOT` measures the package of another tree: K1 at
+    K = 64, D = 19; K2 at M = 396 on a smooth 512 x 640 image; K3 and
+    index_select on the LIO map's gather, in turns; the LIVO frames'
+    launches, K2 kernels and photometric iterations (profile_frames)."""
+    from fast_livo2_tpu_torch.ops import _build, cov_scan, gather
+    from fast_livo2_tpu_torch.ops import photo_iteration as photo
+
+    _build.build(_build.sources())
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in k1_inputs(K_MAIN, D_STATE))
+    img = torch.from_numpy(smooth_image(512, 640)).cuda()
+    args = k2_inputs(img, False)
+    table, nxt, group = gather_timing_inputs(np.random.default_rng(11))
+    out = {"cov_scan": timings(lambda: cov_scan.propagate_cov(F, Q, P0)),
+           "photo_iteration": timings(lambda: photo.photo_iteration(*args)),
+           **gather_timings(table, nxt, group)}
+    out["profile_livo"] = profile_frames(full_width_sequence(), "livo")
+    return out
+
+
+def run_turns(other):
+    """kernel_times of `other`'s package and this one's in four processes,
+    other, this, this, other; one `turns` line."""
+    runs = []
+    for root in (other, REPO, REPO, other):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--kernel-times", root],
+                           capture_output=True, text=True, timeout=900)
+        if p.returncode != 0:
+            print(f"chip_smoke: --kernel-times {root} failed:\n"
+                  f"{p.stderr[-4000:]}", file=sys.stderr)
+            return 1
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    emit({"phase": "turns", "roots": [other, REPO, REPO, other], "runs": runs})
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs only on a GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    mode = argv[0] if argv else None
+    root = os.path.abspath(argv[1]) if mode == "--kernel-times" else REPO
+    sys.path.insert(0, root)
     try:
-        import fast_livo2_tpu_torch  # noqa: F401
+        import fast_livo2_tpu_torch
     except ImportError as e:
-        print(f"chip_smoke: the port package is not beside this script: {e}",
+        print(f"chip_smoke: the port package is not in {root}: {e}",
               file=sys.stderr)
+        return 2
+    if mode == "--kernel-times":
+        emit({"package": os.path.dirname(fast_livo2_tpu_torch.__file__),
+              "nvidia_smi": nvidia_smi(), **kernel_times()})
+        return 0
+    if mode == "--turns":
+        return run_turns(os.path.abspath(argv[1]))
+    if mode is not None:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
     try:
@@ -758,7 +1050,8 @@ def main():
         seq = full_width_sequence()
         emit({"phase": "sequence", "scans": len(seq.scans),
               "images": len(seq.images), "seconds": time.perf_counter() - t0})
-        k2 = phase_kernel_photo(seq)
+        k2, frame = phase_kernel_photo(seq)
+        phase_side_stream(frame)
         traj, _ = phase_pipeline(seq, "only_lio")
         phase_parity(seq, traj, "only_lio", PARITY_FRAMES)
         phase_profile(seq, "only_lio")
@@ -787,4 +1080,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

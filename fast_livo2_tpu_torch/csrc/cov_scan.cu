@@ -26,11 +26,14 @@
 // Q_i in the kernel from the IMU batch, or capturing the frame in a CUDA
 // graph) is later work.
 //
-// C interface for ctypes: cov_scan_launch(F, Q, P0, out, K, D, stream)
-// takes contiguous float32 device pointers F, Q (K, D, D), P0 (D, D),
-// out (D, D), launches on `stream` and returns cudaGetLastError().
+// C interface for ctypes: cov_scan_launch(F, Q, P0, out, K, D, device,
+// stream) takes contiguous float32 device pointers F, Q (K, D, D), P0
+// (D, D), out (D, D) on CUDA device `device`, launches on `stream` and
+// returns cudaGetLastError() (launch_on.cuh).
 
 #include <cuda_runtime.h>
+
+#include "launch_on.cuh"
 
 namespace {
 
@@ -73,11 +76,13 @@ __global__ void cov_scan_kernel(const float* __restrict__ F,
 }  // namespace
 
 extern "C" int cov_scan_launch(const void* F, const void* Q, const void* P0,
-                               void* out, int K, int D, void* stream) {
+                               void* out, int K, int D, int device,
+                               void* stream) {
   if (D < 1 || D > kMaxD || K < 0) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = ((D * D + 31) / 32) * 32;  // one thread per element
-  cov_scan_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(F), static_cast<const float*>(Q),
-      static_cast<const float*>(P0), static_cast<float*>(out), K, D);
-  return static_cast<int>(cudaGetLastError());
+  return launch_on(device, [&] {
+    cov_scan_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(F), static_cast<const float*>(Q),
+        static_cast<const float*>(P0), static_cast<float*>(out), K, D);
+  });
 }

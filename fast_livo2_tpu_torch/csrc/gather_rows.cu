@@ -9,8 +9,8 @@
 // Here each block loads its own indices and every warp copies one whole
 // row (eight rows a block), its 32 lanes reading neighbouring 16-byte
 // float4s of the row (the vector path: W % 4 == 0 and both base pointers
-// 16-byte aligned, which the wrapper decides from the real pointers) or
-// neighbouring floats (the scalar path). Nothing is staged through shared memory: a gather
+// 16-byte aligned, decided here from the real pointers: a view may start
+// at any element) or neighbouring floats (the scalar path). Nothing is staged through shared memory: a gather
 // reuses no byte it reads. The copy is exact (loads and stores only).
 //
 // What bounds it on an H100: bytes. At the LIO map's shape (C = 262,144
@@ -27,12 +27,17 @@
 // sync): an index outside [0, C) reads outside the table, as the TPU
 // kernel's DMA is undefined there.
 //
-// C interface for ctypes: gather_rows_launch(table, idx, out, N, W, vec,
-// stream) takes a contiguous float32 table (C, W), int32 idx (N,) and
-// float32 out (N, W) as device pointers, launches on `stream` and returns
-// cudaGetLastError().
+// C interface for ctypes: gather_rows_launch(table, idx, out, N, W,
+// device, stream) takes a contiguous float32 table (C, W), int32 idx (N,)
+// and float32 out (N, W) as pointers on CUDA device `device`, launches on
+// `stream` and returns cudaGetLastError() (launch_on.cuh). N = 0 launches
+// nothing.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "launch_on.cuh"
 
 namespace {
 
@@ -59,21 +64,23 @@ __global__ void gather_rows_kernel(const float* __restrict__ table,
 }  // namespace
 
 extern "C" int gather_rows_launch(const void* table, const void* idx,
-                                  void* out, int N, int W, int vec,
+                                  void* out, int N, int W, int device,
                                   void* stream) {
-  if (N < 0 || W < 1 || (vec && (W & 3))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (N < 0 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaSuccess);
+  const bool vec = (W & 3) == 0 &&
+                   ((reinterpret_cast<std::uintptr_t>(table) |
+                     reinterpret_cast<std::uintptr_t>(out)) & 15) == 0;
   const dim3 grid((N + kWarps - 1) / kWarps), block(kWarps * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
   const int* i = static_cast<const int*>(idx);
   float* o = static_cast<float*>(out);
-  if (vec) {
-    gather_rows_kernel<true><<<grid, block, 0, s>>>(t, i, o, N, W);
-  } else {
-    gather_rows_kernel<false><<<grid, block, 0, s>>>(t, i, o, N, W);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_on(device, [&] {
+    if (vec) {
+      gather_rows_kernel<true><<<grid, block, 0, s>>>(t, i, o, N, W);
+    } else {
+      gather_rows_kernel<false><<<grid, block, 0, s>>>(t, i, o, N, W);
+    }
+  });
 }

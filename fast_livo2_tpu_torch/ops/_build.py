@@ -7,8 +7,9 @@ own into a shared library
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 under the repository's `build/kernels/` (listed in .gitignore), then
-loaded with ctypes. `<hash>` covers the source text and the flags, so an
-edited source rebuilds and an unchanged one is reused. Only sources in
+loaded with ctypes. `<hash>` covers the source text, the headers of
+csrc/ (`*.cuh`, which sources include) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. Only sources in
 this package are compiled. Nothing here runs at import: the CPU tests
 import the kernel wrappers without nvcc present.
 """
@@ -41,9 +42,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, f), "rb") as src:
+            h.update(f.encode() + b"\0" + src.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
 
 

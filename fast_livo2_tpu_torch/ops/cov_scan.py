@@ -5,10 +5,11 @@
 frame. On CUDA tensors it launches the hand-written kernel
 `csrc/cov_scan.cu` (one thread block, P in shared memory, K sequential
 FP32 steps; the source says what bounds it) or raises: there is no
-fallback. On CPU tensors it runs `propagate_cov_plain`, the same
-sequential recursion in PyTorch ops and in the same order. The kernel is
-built by nvcc at first use (ops/_build.py); nothing is built or loaded
-at import.
+fallback; the call takes the shared launch path of ops/_launch.py. On
+CPU tensors it runs `propagate_cov_plain`, the same sequential
+recursion in PyTorch ops and in the same order. The kernel is built by
+nvcc at first use (ops/_build.py); nothing is built or loaded at
+import.
 
 `LAUNCHES` counts kernel launches (never plain-version calls), so a run
 can show that its main path went through the kernel.
@@ -18,8 +19,11 @@ import ctypes
 
 import torch
 
+from . import _launch
+
 LAUNCHES = 0
 MAX_D = 32  # the kernel keeps three D x D matrices in shared memory
+_F32 = torch.float32
 
 _fn = None
 
@@ -37,14 +41,22 @@ def propagate_cov_plain(F: torch.Tensor, Q: torch.Tensor,
 def _kernel():
     global _fn
     if _fn is None:
-        from . import _build
-
-        fn = _build.load("cov_scan").cov_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        # F, Q, P0, out, K, D, device, stream
+        _fn = _launch.load("cov_scan", "cov_scan_launch",
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
     return _fn
+
+
+def _diagnose(F, Q, P0):
+    """The wrapper's checks one by one (its slow path): raises for the
+    first that fails."""
+    K, D = F.shape[0], P0.shape[0]
+    _launch.diagnose("propagate_cov", "P0", P0, (
+        ("F", F, (K, D, D), _F32), ("Q", Q, (K, D, D), _F32),
+        ("P0", P0, (D, D), _F32)))
+    if D > MAX_D:
+        raise ValueError(f"propagate_cov: D={D} exceeds the kernel's {MAX_D}")
 
 
 def propagate_cov(F: torch.Tensor, Q: torch.Tensor,
@@ -52,33 +64,24 @@ def propagate_cov(F: torch.Tensor, Q: torch.Tensor,
     """Final covariance of the recursion over the leading axis of F, Q
     (K, D, D) from P0 (D, D). CPU tensors run the plain version; CUDA
     tensors launch the kernel."""
-    if P0.device.type == "cpu":
-        return propagate_cov_plain(F, Q, P0)
-    if P0.device.type != "cuda":
-        raise ValueError(f"propagate_cov: unsupported device {P0.device}")
-    K, D = F.shape[0], P0.shape[0]
-    for name, t, shape in (("F", F, (K, D, D)), ("Q", Q, (K, D, D)),
-                           ("P0", P0, (D, D))):
-        if t.device != P0.device:
-            raise ValueError(f"propagate_cov: {name} on {t.device}, "
-                             f"P0 on {P0.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"propagate_cov: {name} must be float32, "
-                            f"got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"propagate_cov: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"propagate_cov: {name} must be contiguous")
-    if D > MAX_D:
-        raise ValueError(f"propagate_cov: D={D} exceeds the kernel's {MAX_D}")
-    out = torch.empty((D, D), dtype=torch.float32, device=P0.device)
-    with torch.cuda.device(P0.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(F.data_ptr(), Q.data_ptr(), P0.data_ptr(),
-                        out.data_ptr(), K, D, stream)
-    if err != 0:
-        raise RuntimeError(f"cov_scan kernel launch failed: cudaError {err}")
+    dev = P0.get_device()
+    if not (dev >= 0 and P0.is_cuda and F.get_device() == dev
+            and Q.get_device() == dev and F.dtype == _F32
+            and Q.dtype == _F32 and P0.dtype == _F32 and F.dim() == 3
+            and P0.dim() == 2 and F.shape == Q.shape
+            and F.shape[1:] == P0.shape and P0.shape[0] == P0.shape[1] <= MAX_D
+            and F.is_contiguous() and Q.is_contiguous()
+            and P0.is_contiguous()):
+        if _launch.on_cpu("propagate_cov", P0):
+            return propagate_cov_plain(F, Q, P0)
+        _diagnose(F, Q, P0)
+    D = P0.shape[0]
+    out = P0.new_empty((D, D))
+    err = (_fn or _kernel())(F.data_ptr(), Q.data_ptr(), P0.data_ptr(),
+                             out.data_ptr(), F.shape[0], D, dev,
+                             _launch.raw_stream(dev))
+    if err:
+        _launch.fail("cov_scan", err)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -11,11 +11,15 @@ tau * val - ref, ten patch sums and from them, in closed form, one row
 H_6 = expo * val); then the rows summed over points.
 
 On CUDA tensors it launches the hand-written kernel
-`csrc/photo_iteration.cu` (one block per point, then a fixed-order sum
-over points; the source says what bounds it) or raises: there is no
-fallback. On CPU tensors it runs `photo_iteration_plain`, the same
-function in PyTorch ops. `LAUNCHES` counts calls that launched the
-kernel, never plain-version calls.
+`csrc/photo_iteration.cu` (one launch: one warp per point, eight points
+a block, the sum over blocks by the last block to finish, in a fixed
+order; the source says what bounds it) or raises: there is no fallback.
+The call takes the shared launch path of ops/_launch.py; its scratch
+(the blocks' partial rows and the last-block ticket) is allocated once
+per device and stream and grows with M, so a call allocates only its
+64-float output and never waits for the device. On CPU tensors it runs
+`photo_iteration_plain`, the same function in PyTorch ops. `LAUNCHES`
+counts calls that launched the kernel, never plain-version calls.
 
 Semantics kept from the TPU kernel, and not those of the torch-op path
 in core/vio.py (which samples through ops/image):
@@ -39,6 +43,8 @@ import functools
 
 import torch
 
+from . import _launch
+
 # pts_meta layout (per point): pos(0:3) | scale_log2(3) | ok(4); pad 8.
 META_W = 8
 # params layout: Rcw(0:9) | Pcw(9:12) | tau(12) | Jdphi_dR(13:22) |
@@ -51,9 +57,15 @@ WIN = 12  # superpatch rows/cols (ps + 4 at ps = 8)
 PS = 8
 _FLOOR_CLAMP = float(1 << 30)
 
+BLOCK_POINTS = 8  # points a block of the kernel (one warp each)
+_F32 = torch.float32
+_PAR_SHAPE = (1, PAR_W)
+
 LAUNCHES = 0
 
-_fns = None
+_fn = None
+# (device, raw stream) -> (partials (blocks, OUT_W) f32, ticket (1,) int32)
+_SCRATCH = {}
 
 
 def clamp_scale_log2(width: int, max_scale_log2: int = 4) -> int:
@@ -255,19 +267,45 @@ def photo_iteration_plain(img, pts_meta, ref_patch, params, ps: int = 8,
     return _unpack(torch.sum(rows, dim=0))
 
 
-def _kernels():
-    global _fns
-    if _fns is None:
-        from . import _build
+def _kernel():
+    global _fn
+    if _fn is None:
+        # img, meta, ref, par, partials, ticket, out, H, W, M,
+        # max_scale_log2, device, stream
+        _fn = _launch.load("photo_iteration", "photo_iteration_launch",
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p])
+    return _fn
 
-        lib = _build.load("photo_iteration")
-        fn = lib.photo_iteration_launch
-        # img, meta, ref, par, rows, out, H, W, M, max_scale_log2, stream
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns = fn
-    return _fns
+
+def _scratch(img, dev: int, stream: int, blocks: int):
+    """The kernel's scratch for this device and stream: partial rows for
+    at least `blocks` blocks, and the ticket, zeroed once here (every
+    launch leaves it at 0). Kernels on one stream run in order, so they
+    can share it; another stream gets its own."""
+    s = _SCRATCH.get((dev, stream))
+    if s is None or s[0].shape[0] < blocks:
+        ticket = img.new_zeros((1,), dtype=torch.int32) if s is None else s[1]
+        s = _SCRATCH[(dev, stream)] = (img.new_empty((blocks, OUT_W)), ticket)
+    return s
+
+
+def _diagnose(img, pts_meta, ref_patch, params, ps):
+    """The wrapper's checks one by one (its slow path): raises for the
+    first that fails."""
+    if ps != PS:
+        raise ValueError(f"photo_iteration: the kernel takes ps = {PS}, got {ps}")
+    if img.dim() != 2:
+        raise ValueError(f"photo_iteration: img must be (H, W), got "
+                         f"{tuple(img.shape)}")
+    H, W = img.shape
+    M = pts_meta.shape[0]
+    if W < WIN:
+        raise ValueError(f"photo_iteration: image width {W} < {WIN}")
+    _launch.diagnose("photo_iteration", "img", img, (
+        ("img", img, (H, W), _F32), ("pts_meta", pts_meta, (M, META_W), _F32),
+        ("ref_patch", ref_patch, (M, PS, PS), _F32),
+        ("params", params, _PAR_SHAPE, _F32)))
 
 
 def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
@@ -278,46 +316,35 @@ def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
     params: (1, PAR_W). Returns (HTH7 (7, 7), HTz7 (7,), err_sum (),
     cnt ()). CPU tensors run the plain version; CUDA tensors launch the
     kernel."""
-    if img.device.type == "cpu":
-        return photo_iteration_plain(img, pts_meta, ref_patch, params, ps,
-                                     max_scale_log2)
-    if img.device.type != "cuda":
-        raise ValueError(f"photo_iteration: unsupported device {img.device}")
-    if ps != PS:
-        raise ValueError(f"photo_iteration: the kernel takes ps = {PS}, got {ps}")
-    if img.dim() != 2:
-        raise ValueError(f"photo_iteration: img must be (H, W), got "
-                         f"{tuple(img.shape)}")
+    dev = img.get_device()
+    if not (dev >= 0 and img.is_cuda and ps == PS
+            and pts_meta.get_device() == dev
+            and ref_patch.get_device() == dev and params.get_device() == dev
+            and img.dtype == _F32 and pts_meta.dtype == _F32
+            and ref_patch.dtype == _F32 and params.dtype == _F32
+            and img.dim() == 2 and img.shape[1] >= WIN
+            and pts_meta.dim() == 2 and pts_meta.shape[1] == META_W
+            and ref_patch.shape == (pts_meta.shape[0], PS, PS)
+            and params.shape == _PAR_SHAPE and img.is_contiguous()
+            and pts_meta.is_contiguous() and ref_patch.is_contiguous()
+            and params.is_contiguous()):
+        if _launch.on_cpu("photo_iteration", img):
+            return photo_iteration_plain(img, pts_meta, ref_patch, params, ps,
+                                         max_scale_log2)
+        _diagnose(img, pts_meta, ref_patch, params, ps)
     H, W = img.shape
     M = pts_meta.shape[0]
-    if W < WIN:
-        raise ValueError(f"photo_iteration: image width {W} < {WIN}")
-    for name, t, shape in (("img", img, (H, W)),
-                           ("pts_meta", pts_meta, (M, META_W)),
-                           ("ref_patch", ref_patch, (M, PS, PS)),
-                           ("params", params, (1, PAR_W))):
-        if t.device != img.device:
-            raise ValueError(f"photo_iteration: {name} on {t.device}, "
-                             f"img on {img.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"photo_iteration: {name} must be float32, "
-                            f"got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"photo_iteration: {name} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"photo_iteration: {name} must be contiguous")
-    msl = clamp_scale_log2(W, max_scale_log2)
-    rows = torch.empty((M, OUT_W), dtype=torch.float32, device=img.device)
-    tot = torch.empty((OUT_W,), dtype=torch.float32, device=img.device)
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels()(img.data_ptr(), pts_meta.data_ptr(),
-                         ref_patch.data_ptr(), params.data_ptr(),
-                         rows.data_ptr(), tot.data_ptr(), H, W, M, msl, stream)
-    if err != 0:
-        raise RuntimeError(f"photo_iteration kernel launch failed: "
-                           f"cudaError {err}")
+    stream = _launch.raw_stream(dev)
+    partials, ticket = _scratch(img, dev, stream,
+                                max(1, -(-M // BLOCK_POINTS)))
+    tot = img.new_empty((OUT_W,))
+    err = (_fn or _kernel())(img.data_ptr(), pts_meta.data_ptr(),
+                             ref_patch.data_ptr(), params.data_ptr(),
+                             partials.data_ptr(), ticket.data_ptr(),
+                             tot.data_ptr(), H, W, M, max_scale_log2, dev,
+                             stream)
+    if err:
+        _launch.fail("photo_iteration", err)
     global LAUNCHES
     LAUNCHES += 1
     return _unpack(tot)

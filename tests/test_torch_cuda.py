@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from fast_livo2_tpu_torch.ops import _launch
 from fast_livo2_tpu_torch.ops import cov_scan
 from fast_livo2_tpu_torch.ops import gather
 from fast_livo2_tpu_torch.ops import photo_iteration as photo
@@ -20,7 +21,8 @@ from fast_livo2_tpu_torch.ops import photo_iteration as photo
 RTOL_COV, ATOL_COV = 2e-4, 2e-5
 # K2: each HTH / HTz entry within 1e-4 of the plain block's largest
 # absolute entry plus rtol 2e-4 (the card sums the 64 pixels and the M
-# rows in another order); err rtol 1e-4; cnt exact.
+# rows in another order); err rtol 1e-4; cnt exact. All-zero outputs
+# (M = 0) must be exactly zero.
 RTOL_PHOTO, BLOCK_ATOL_PHOTO = 2e-4, 1e-4
 
 
@@ -148,6 +150,108 @@ def test_photo_iteration_kernel_matches_plain(H, W, M, with_dist):
     torch.cuda.synchronize()
     assert photo.LAUNCHES == before + 1
     _assert_photo_close(got, photo.photo_iteration_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [0, 1, 7, 9, 396, 4096])
+@pytest.mark.parametrize("with_dist", [False, True])
+def test_photo_iteration_kernel_block_edges(M, with_dist):
+    """K2 at point counts around its eight points a block: none (one
+    block writes zeros), one, a block short of full, one over, the main
+    path's 396 (50 blocks) and 4096 (512 blocks, a longer final sum)."""
+    _need_card()
+    args = _photo_inputs(512, 640, M, with_dist, seed=M)
+    before = photo.LAUNCHES
+    got = photo.photo_iteration(*args)
+    torch.cuda.synchronize()
+    assert photo.LAUNCHES == before + 1
+    want = photo.photo_iteration_plain(*args)
+    if M == 0:
+        assert all(not torch.any(g) for g in got)
+    _assert_photo_close(got, want)
+
+
+def _photo_flat(out):
+    return torch.cat([out[0].reshape(-1), out[1], out[2].reshape(1),
+                      out[3].reshape(1)])
+
+
+@pytest.mark.cuda
+def test_photo_iteration_kernel_bitwise_repeatable():
+    """The sum over blocks runs in a fixed order whichever block finishes
+    last: 20 calls give the same bits, with calls at other M (other
+    grids, the ticket reset by each call's last block) in between."""
+    _need_card()
+    args = _photo_inputs(512, 640, 396, True)
+    others = [_photo_inputs(512, 640, M, False, seed=M) for M in (9, 4096)]
+    first = _photo_flat(photo.photo_iteration(*args))
+    for k in range(20):
+        assert torch.equal(_photo_flat(photo.photo_iteration(*args)), first)
+        photo.photo_iteration(*others[k % 2])
+
+
+@pytest.mark.cuda
+def test_photo_iteration_one_device_kernel_per_call():
+    """One launch a call: no second stage, no memset, no copy."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    args = _photo_inputs(512, 640, 396, False)
+    photo.photo_iteration(*args)  # the stream's scratch is allocated here
+    torch.cuda.synchronize()
+    recorded = []
+    # the second of two cycles is recorded: the first warms the tracer up
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(
+                     [e.name for e in p.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA])) as prof:
+        for _ in range(2):
+            for _ in range(10):
+                photo.photo_iteration(*args)
+            torch.cuda.synchronize()
+            prof.step()
+    names = recorded[-1]
+    assert len(names) == 10, names
+    assert all("photo_iteration_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_raw_stream_is_the_current_stream():
+    _need_card()
+    dev = torch.cuda.current_device()
+    assert _launch.raw_stream(dev) == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        assert (_launch.raw_stream(dev) == torch.cuda.current_stream().cuda_stream
+                == side.cuda_stream)
+    assert _launch.raw_stream(dev) != side.cuda_stream
+
+
+@pytest.mark.cuda
+def test_wrappers_on_a_side_stream_match_plain():
+    """Each wrapper launched inside torch.cuda.stream(side) runs on that
+    stream (K2 with the side stream's own scratch) and agrees with its
+    plain version."""
+    _need_card()
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in _cov_inputs(64))
+    k2 = _photo_inputs(512, 640, 396, True)
+    table, idx = _gather_inputs(4096, 128, 1024)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    counts = (cov_scan.LAUNCHES, photo.LAUNCHES, gather.LAUNCHES)
+    with torch.cuda.stream(side):
+        cov = cov_scan.propagate_cov(F, Q, P0)
+        pho = photo.photo_iteration(*k2)
+        gat = gather.gather_rows(table, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert (cov_scan.LAUNCHES, photo.LAUNCHES, gather.LAUNCHES) == tuple(
+        c + 1 for c in counts)
+    torch.testing.assert_close(cov, cov_scan.propagate_cov_plain(F, Q, P0),
+                               rtol=RTOL_COV, atol=ATOL_COV)
+    _assert_photo_close(pho, photo.photo_iteration_plain(*k2))
+    assert torch.equal(gat, gather.gather_rows_plain(table, idx))
 
 
 @pytest.mark.cuda

@@ -24,8 +24,8 @@ from fast_livo2_tpu_torch.ops import so3 as tso3
 
 def _case(with_dist, slog_hi, seed=0, H=96, W=128, M=8):
     """tests/test_pallas_photo.py's inputs: a smooth image, M points on a
-    ring about 2 m ahead, one point masked out; stride exponents drawn in
-    [0, slog_hi)."""
+    ring about 2 m ahead, the last point masked out (none where M = 1);
+    stride exponents drawn in [0, slog_hi)."""
     rng = np.random.default_rng(seed)
     img = (np.cumsum(np.cumsum(rng.standard_normal((H, W)), 0), 1)
            .astype(np.float32) / 50.0)
@@ -46,7 +46,7 @@ def _case(with_dist, slog_hi, seed=0, H=96, W=128, M=8):
         img=img, cam=cfg, pos=pos, Rcw=Rcw, Pcw=Pcw, tau=np.float32(1.1),
         ref=rng.standard_normal((M, 64)).astype(np.float32),
         slog=rng.integers(0, slog_hi, M).astype(np.int32),
-        ok=np.array([True] * (M - 1) + [False]),
+        ok=np.array([True] * (M - 1) + [M == 1]),
         Jdphi_dR=Rci.astype(np.float32), Jdp_dR=Jdp_dR.astype(np.float32))
 
 
@@ -96,6 +96,25 @@ def test_plain_matches_pallas_kernel(with_dist):
     np.testing.assert_array_equal(par.numpy(), j_par)
     _assert_outputs_close(
         [x.numpy() for x in tp.photo_iteration_plain(img, meta, refp, par)], want)
+
+
+@pytest.mark.parametrize("M", [1, 7, 9, 17])
+def test_plain_matches_pallas_kernel_at_block_edges(M):
+    """Point counts around the CUDA kernel's eight points a block (one
+    point, a block short of full, one over, two blocks and one over)."""
+    c = _case(True, slog_hi=3, seed=M, M=M)
+    want, _ = _jax_fused(c)
+    _assert_outputs_close(
+        [x.numpy() for x in tp.photo_iteration_plain(*_torch_inputs(c))], want)
+
+
+def test_plain_with_no_points_is_zero():
+    """M = 0 (an empty submap): every output is exactly zero."""
+    img, meta, refp, par = _torch_inputs(_case(False, slog_hi=3))
+    HTH, HTz, err, cnt = tp.photo_iteration_plain(img, meta[:0], refp[:0], par)
+    assert HTH.shape == (7, 7) and HTz.shape == (7,)
+    for x in (HTH, HTz, err, cnt):
+        assert x.dtype == torch.float32 and not torch.any(x)
 
 
 def _torch_op_iteration(c, img, scale):
