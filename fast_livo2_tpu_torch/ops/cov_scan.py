@@ -3,13 +3,17 @@
 
 `propagate_cov` is the wrapper the IMU propagation calls once per
 frame. On CUDA tensors it launches the hand-written kernel
-`csrc/cov_scan.cu` (one thread block, P in shared memory, K sequential
-FP32 steps; the source says what bounds it) or raises: there is no
-fallback; the call takes the shared launch path of ops/_launch.py. On
-CPU tensors it runs `propagate_cov_plain`, the same sequential
-recursion in PyTorch ops and in the same order. The kernel is built by
-nvcc at first use (ops/_build.py); nothing is built or loaded at
-import.
+`csrc/cov_scan.cu` (one thread block of four warps running the K steps
+in order in FP32: F_i and Q_i staged ahead in shared memory by
+asynchronous copies, one block barrier a step, and steps whose F_i is I
+and Q_i is 0 by value, the IMU batch's padding, skipped; the source says
+what bounds it) or raises: there is no fallback; the call takes the
+shared launch path of ops/_launch.py. On CPU tensors it runs
+`propagate_cov_plain`, the same sequential recursion in PyTorch ops and
+in the same order. The two differ only on a non-finite P: a skipped
+step keeps an Inf that the plain step turns into NaN (0 * Inf). The
+kernel is built by nvcc at first use (ops/_build.py); nothing is built
+or loaded at import.
 
 `LAUNCHES` counts kernel launches (never plain-version calls), so a run
 can show that its main path went through the kernel.
@@ -22,7 +26,7 @@ import torch
 from . import _launch
 
 LAUNCHES = 0
-MAX_D = 32  # the kernel keeps three D x D matrices in shared memory
+MAX_D = 32  # the widest D the kernel's lane tiles cover
 _F32 = torch.float32
 
 _fn = None

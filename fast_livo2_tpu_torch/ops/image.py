@@ -26,7 +26,7 @@ def _gather(img: torch.Tensor, xi: torch.Tensor, yi: torch.Tensor) -> torch.Tens
     return img[yi, xi]
 
 
-def patch_offsets(patch_size: int, device="cpu"):
+def patch_offsets(patch_size: int, device="cuda"):
     """(patch²,) integer column and row offsets, row-major like the
     reference patch layout (vio.cpp:216-224)."""
     half = patch_size // 2

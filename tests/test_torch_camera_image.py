@@ -89,7 +89,7 @@ def test_sampling_matches_jax():
              px=torch.from_numpy(px), scale=torch.from_numpy(scale),
              idx=torch.from_numpy(idx))
 
-    for a, b in zip(timg.patch_offsets(ps), jimg.patch_offsets(ps)):
+    for a, b in zip(timg.patch_offsets(ps, "cpu"), jimg.patch_offsets(ps)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_allclose(
         timg.sample_patches(T["img"], T["px"], T["scale"], ps).numpy(),

@@ -42,11 +42,31 @@ def _cov_inputs(K, D=19, seed=3):
     return F, Q, P0
 
 
+def _cov_with_noops(live, K=64, D=19, seed=3):
+    """_cov_inputs with the steps not in `live` (a boolean mask over K)
+    made exact no-ops: F = I and Q = 0 by value, about a tenth of their
+    zeros -0.0, as the IMU batch's padding has them."""
+    F, Q, P0 = _cov_inputs(K, D, seed)
+    rng = np.random.default_rng(seed + 1)
+    pad = ~np.asarray(live)
+    F[pad] = np.eye(D, dtype=np.float32)
+    Q[pad] = 0.0
+    neg = rng.random((2,) + F.shape) < 0.1
+    F[neg[0] & pad[:, None, None] & (F == 0)] = -0.0
+    Q[neg[1] & pad[:, None, None]] = -0.0
+    return F, Q, P0
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,D", [(64, 19), (1, 19), (64, 32), (7, 5)])
+@pytest.mark.parametrize("K,D", [(64, 19), (1, 19), (64, 32), (7, 5), (0, 19),
+                                 (64, 1), (64, 21), (13, 19), (200, 19)])
 def test_cov_scan_kernel_matches_plain(K, D):
     """The hand-written kernel against its plain version on the card, at
-    the main path's K = 64, D = 19 and at the edges it accepts."""
+    the main path's K = 64, D = 19 and at the edges it accepts: no step
+    (P0 back), one step, the widest and narrowest D, a D whose padded
+    row stride is not D rounded up to 4 (21 -> 28), a last group of 5
+    steps whose last 16-byte copy holds one float, and more steps than
+    one chunk stages (64)."""
     _need_card()
     F, Q, P0 = (torch.from_numpy(a).cuda() for a in _cov_inputs(K, D))
     before = cov_scan.LAUNCHES
@@ -55,6 +75,73 @@ def test_cov_scan_kernel_matches_plain(K, D):
     assert cov_scan.LAUNCHES == before + 1
     want = cov_scan.propagate_cov_plain(F, Q, P0)
     torch.testing.assert_close(got, want, rtol=RTOL_COV, atol=ATOL_COV)
+
+
+@pytest.mark.cuda
+def test_cov_scan_kernel_on_unaligned_views():
+    """F and Q starting 4 bytes past a 16-byte boundary: the kernel copies
+    them 4 bytes at a time instead of 16, with the same result."""
+    _need_card()
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in _cov_inputs(64))
+    views = []
+    for t in (F, Q):
+        flat = torch.zeros(t.numel() + 1, device="cuda")
+        flat[1:] = t.reshape(-1)
+        views.append(flat[1:].view(t.shape))
+    assert all(v.data_ptr() % 16 == 4 for v in views)
+    got = cov_scan.propagate_cov(*views, P0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cov_scan.propagate_cov(F, Q, P0))
+    torch.testing.assert_close(got, cov_scan.propagate_cov_plain(F, Q, P0),
+                               rtol=RTOL_COV, atol=ATOL_COV)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["trailing", "interleaved", "all"])
+def test_cov_scan_kernel_skips_noop_steps(pattern):
+    """Steps with F = I and Q = 0 by value (-0.0 among the zeros), which
+    the kernel skips: the main path's 21 live steps then 43 padding steps,
+    every third step live, and no live step at all, which gives P0 back
+    by value."""
+    _need_card()
+    K = 64
+    live = {"trailing": np.arange(K) < 21, "interleaved": np.arange(K) % 3 == 0,
+            "all": np.zeros(K, bool)}[pattern]
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in _cov_with_noops(live, K))
+    got = cov_scan.propagate_cov(F, Q, P0)
+    torch.cuda.synchronize()
+    want = cov_scan.propagate_cov_plain(F, Q, P0)
+    torch.testing.assert_close(got, want, rtol=RTOL_COV, atol=ATOL_COV)
+    if pattern == "all":
+        assert torch.equal(got, P0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["dense", "trailing"])
+def test_cov_scan_kernel_bitwise_repeatable(pattern):
+    """One block, a fixed order of operations: 20 calls give the same
+    bits, with and without skipped steps."""
+    _need_card()
+    live = np.arange(64) < (64 if pattern == "dense" else 21)
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in _cov_with_noops(live))
+    first = cov_scan.propagate_cov(F, Q, P0)
+    for _ in range(20):
+        assert torch.equal(cov_scan.propagate_cov(F, Q, P0), first)
+
+
+@pytest.mark.cuda
+def test_cov_scan_kernel_noop_steps_keep_an_inf():
+    """The one case where skipping changes values: a non-finite P. A
+    skipped step keeps an Inf of P0, where the full step (the plain
+    version) makes NaN of it (0 * Inf in the off-diagonal terms)."""
+    _need_card()
+    F, Q, P0 = _cov_with_noops(np.zeros(8, bool), K=8)
+    P0[2, 5] = P0[5, 2] = np.inf
+    F, Q, P0 = (torch.from_numpy(a).cuda() for a in (F, Q, P0))
+    got = cov_scan.propagate_cov(F, Q, P0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, P0)
+    assert torch.isnan(cov_scan.propagate_cov_plain(F, Q, P0)).any()
 
 
 @pytest.mark.cuda

@@ -138,6 +138,58 @@ def test_propagate_padding_is_noop():
                                atol=1e-6)
 
 
+def _captured_cov_inputs(monkeypatch, est):
+    """The F, Q and P0 that `imu.propagate` hands to
+    `cov_scan.propagate_cov` for a main-path frame (200 Hz IMU, a 0.11 s
+    span, K = 64), captured by replacing the wrapper; and the live
+    interval count."""
+    rng = np.random.default_rng(21)
+    stamps = np.arange(22) / 200.0
+    gyr = rng.normal(size=(22, 3)) * 0.3
+    acc = np.array([0.05, -0.02, 9.7]) + rng.normal(size=(22, 3)) * 0.3
+    b = timu.prepare_imu_batch(stamps, gyr, acc, 0.0, 0.11, 64)
+    *_, packed = _imu_case(seed=21)  # a non-trivial prior
+    _, tn = _noise_pair(est_bias=est, est_gravity=est, est_exposure=est)
+    seen = []
+    monkeypatch.setattr(tcov, "propagate_cov",
+                        lambda F, Q, P0: seen.append((F, Q, P0)) or P0)
+    ts0, tP0 = tstate.unpack_state(torch.from_numpy(packed))
+    timu.propagate(ts0, tP0, timu.batch_to_device(b, "cpu"), tn)
+    assert len(seen) == 1
+    return (*seen[0], int(b.valid.sum()))
+
+
+@pytest.mark.parametrize("est", [True, False])
+def test_propagate_padding_rows_are_identity_and_zero(monkeypatch, est):
+    """The rows of F and Q that `imu.propagate` builds for the batch's
+    padding intervals (dt = 0) are I and 0 by value, not by bits: some of
+    their zeros are -0.0, so the card kernel finds them with ==."""
+    F, Q, _, live = _captured_cov_inputs(monkeypatch, est)
+    assert F.shape == Q.shape == (64, 19, 19) and live == 21
+    assert torch.all(F[live:] == torch.eye(19)) and torch.all(Q[live:] == 0)
+    assert not torch.all(F[:live] == torch.eye(19), dim=(1, 2)).any()
+    negative_zeros = int((torch.signbit(F[live:]) & (F[live:] == 0)).sum()
+                         + (torch.signbit(Q[live:]) & (Q[live:] == 0)).sum())
+    assert negative_zeros > 0
+
+
+@pytest.mark.parametrize("est", [True, False])
+def test_cov_scan_plain_unchanged_without_padding_rows(monkeypatch, est):
+    """The plain recursion over the live rows alone equals the one over
+    all 64 (torch.equal): the padding steps the kernel skips are exact
+    no-ops of the recursion the CPU runs."""
+    F, Q, P0, live = _captured_cov_inputs(monkeypatch, est)
+    assert torch.equal(tcov.propagate_cov_plain(F, Q, P0),
+                       tcov.propagate_cov_plain(F[:live], Q[:live], P0))
+
+
+def test_cov_scan_plain_with_no_steps_returns_p0():
+    F, Q, P0 = (torch.from_numpy(a) for a in _cov_inputs(0))
+    assert F.shape == (0, 19, 19)
+    assert torch.equal(tcov.propagate_cov_plain(F, Q, P0), P0)
+    assert torch.equal(tcov.propagate_cov(F, Q, P0), P0)
+
+
 def test_static_init_and_no_imu_mode_match_jax():
     rng = np.random.default_rng(6)
     acc = np.array([0.1, -0.2, 9.8]) + rng.normal(size=(40, 3)) * 0.02
