@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (ONLY_LIO, full LIVO and the user's
-run through the CLI, with its outputs and checkpoint/resume) on one
-NVIDIA GPU and hold every hand-written kernel against its plain PyTorch
-version.
+run through the CLI, with its outputs and checkpoint/resume, in split,
+fused and staged frames) on one NVIDIA GPU and hold every hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -63,10 +63,33 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     loads the checkpoint (every tensor bit for bit), runs
                     the rest and is held to the golden tolerances against
                     it; IMU-rate poses read before its last frame.
+  14-19. pipeline_fused, parity_fused, profile_fused and the same three
+                    for LIVO: tpu.fused_frame, each frame after the first
+                    two one replay of a captured CUDA graph. Four runs in
+                    turns in one process (split, fused, fused, split):
+                    frames, ATE, tracked points, frame times, capture
+                    seconds, graphs and their memory, bytes copied back a
+                    frame, 0 host syncs in a replayed frame, K1 once and
+                    K2 pyramid levels x iterations (20) a VIO frame
+                    beside the iterations that took effect; the fused run
+                    against the split one at the golden tolerances; steady
+                    replays under torch.profiler with K1 and K2 found in
+                    them by kernel name;
+  20. stage_timing  LIVO with tpu.stage_timing: every stage's device ms
+                    on every staged frame, the table printed, and the
+                    trajectory against the split run with
+                    deferred_map_insert = False beside two such runs'
+                    own spread;
+  21. resume_fused  a fused run saved half-way, loaded into a fused
+                    pipeline that has already captured its graph, and run
+                    on from its static buffers: held to the golden
+                    tolerances against the uninterrupted fused run.
 
-Then the `kernels` line, the card's name and power limit, and as the last
-line {"ok": true, "device": {...}}. Any failed phase exits non-zero before
-that line; there is no CPU fallback. Imports nothing of JAX. Every
+Then the `kernels` line (K1's and K2's launches on the split LIVO path
+and, as `launches_fused`, on the fused one), the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Any failed
+phase exits non-zero before that line; there is no CPU fallback.
+Imports nothing of JAX. Every
 kernel phase reports `ms` (CUDA events around 100 back-to-back calls),
 `host_us` (time.perf_counter around 1,000 calls), `device_ms` and the
 device kernels a call (torch.profiler).
@@ -84,6 +107,7 @@ process.
 """
 
 import contextlib
+import gc
 import hashlib
 import io
 import itertools
@@ -573,29 +597,61 @@ def drive(pipe):
     return frame_ms, syncs
 
 
-def phase_pipeline(seq, mode):
-    """The full-width sequence on "cuda" in `mode` (only_lio or livo):
-    process(seq) unrolled so that each frame is timed on its own. The
-    kernels' launch counts are set to 0 just before the run and read just
-    after it."""
+def run_sequence(seq, mode, **tpu):
+    """The full-width sequence on "cuda" in `mode` with the tpu.* options
+    given, driven frame by frame (`drive`), the kernels' launch counts
+    set to 0 just before and read just after. Returns (pipeline, the
+    queued event times, frame ms, syncs a frame, launches)."""
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
-    from fast_livo2_tpu_torch.io import synthetic
     from fast_livo2_tpu_torch.ops import cov_scan, gather
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
     cfg = full_width_config()
+    for k, v in tpu.items():
+        setattr(cfg.tpu, k, v)
     pipe = LIVOPipeline(cfg, mode, device="cuda")
     pipe.push_sequence(seq)
     events = _events(pipe)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cov_scan.LAUNCHES = 0
-    photo.LAUNCHES = 0
-    gather.LAUNCHES = 0
+    cov_scan.LAUNCHES = photo.LAUNCHES = gather.LAUNCHES = 0
     frame_ms, syncs = drive(pipe)
     launches = {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES,
                 "gather_rows": gather.LAUNCHES}
     pipe._finalize_host_views()
+    return pipe, events, frame_ms, syncs, launches
+
+
+def free_device_memory():
+    """Return the memory of pipelines no longer referenced (a fused
+    pipeline and its graphs refer to each other) to the card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def traj_diff(a, b):
+    """(max position diff m, max rotation-matrix entry diff) of two runs
+    over the same frames."""
+    check([t for t, _, _ in a] == [t for t, _, _ in b],
+          "the two runs cut different frames")
+    return (max(float(np.abs(x[2] - y[2]).max()) for x, y in zip(a, b)),
+            max(float(np.abs(x[1] - y[1]).max()) for x, y in zip(a, b)))
+
+
+def synthetic_ate(traj, seq):
+    from fast_livo2_tpu_torch.io import synthetic
+
+    return synthetic.ate_rmse([(t, p) for t, _, p in traj], seq.gt)
+
+
+def phase_pipeline(seq, mode):
+    """The full-width sequence on "cuda" in `mode` (only_lio or livo):
+    process(seq) unrolled so that each frame is timed on its own. The
+    kernels' launch counts are set to 0 just before the run and read just
+    after it."""
+    cfg = full_width_config()
+    pipe, events, frame_ms, syncs, launches = run_sequence(seq, mode)
     traj = pipe.trajectory
     frames = len(traj)
     check(frames == len(frame_ms), f"{frames} trajectory rows for "
@@ -611,7 +667,7 @@ def phase_pipeline(seq, mode):
     Rs = np.array([R for _, R, _ in traj])
     check(np.isfinite(ps).all() and np.isfinite(Rs).all(),
           "non-finite trajectory")
-    ate = synthetic.ate_rmse([(t, p) for t, _, p in traj], seq.gt)
+    ate = synthetic_ate(traj, seq)
     check(ate < ATE_GATE_M, f"{mode}: ATE {ate} m >= {ATE_GATE_M} m")
     # Every frame (the map-building first one included) propagates
     # through the IMU batch once.
@@ -663,13 +719,7 @@ def phase_parity(seq, traj_cuda, mode, frames):
     traj_cpu = pipe.process(seq, max_frames=frames)
     secs = time.perf_counter() - t0
     check(len(traj_cpu) == frames, f"cpu run gave {len(traj_cpu)} frames")
-    ts_c = np.array([t for t, _, _ in traj_cpu])
-    ts_g = np.array([t for t, _, _ in traj_cuda[:frames]])
-    dp = max(float(np.abs(a[2] - b[2]).max())
-             for a, b in zip(traj_cpu, traj_cuda))
-    dR = max(float(np.abs(a[1] - b[1]).max())
-             for a, b in zip(traj_cpu, traj_cuda))
-    check(np.array_equal(ts_c, ts_g), "cpu and cuda runs cut different frames")
+    dp, dR = traj_diff(traj_cpu, traj_cuda[:frames])
     check(dp <= POS_TOL_M and dR <= ROT_TOL,
           f"{mode} cpu vs cuda: position {dp} m (tol {POS_TOL_M}), "
           f"rotation {dR} (tol {ROT_TOL})")
@@ -692,7 +742,7 @@ def phase_profile(seq, mode, warm=12, frames=10, top=8):
     return out
 
 
-def profile_frames(seq, mode, warm=12, frames=10, top=8):
+def profile_frames(seq, mode, warm=12, frames=10, top=8, fused=False):
     """Where a steady frame's time goes: `frames` frames after `warm`
     unprofiled ones, under torch.profiler. Reports wall and summed kernel
     time per frame, the device's idle share of the wall time, the kernel
@@ -700,12 +750,14 @@ def profile_frames(seq, mode, warm=12, frames=10, top=8):
     time and kernels a frame (by its kernel name: the main path's real K1
     calls), K2's share of the kernel time, its device kernels and the
     photometric iterations the frames ran (the launches a frame move with
-    them)."""
+    them). `fused`: tpu.fused_frame, each profiled frame one replay."""
     from torch.profiler import ProfilerActivity, profile
 
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
 
-    pipe = LIVOPipeline(full_width_config(), mode, device="cuda")
+    cfg = full_width_config()
+    cfg.tpu.fused_frame = fused
+    pipe = LIVOPipeline(cfg, mode, device="cuda")
     pipe.push_sequence(seq)
     pipe.poll(max_frames=warm, flush=True)
     torch.cuda.synchronize()
@@ -715,7 +767,7 @@ def profile_frames(seq, mode, warm=12, frames=10, top=8):
         n = pipe.poll(max_frames=frames, flush=True)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    iterations = pipe.photo_iterations - iterations
+    iterations = int(pipe.photo_iterations - iterations)
     check(n == frames, f"profiled {n} frames, wanted {frames}")
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3  # us -> ms
@@ -1008,8 +1060,7 @@ def phase_resume(seq, frames):
     b._finalize_host_views()
     check([t for t, _, _ in b.trajectory] == [t for t, _, _ in tail],
           f"resumed run cut {len(b.trajectory)} frames, {len(tail)} expected")
-    dp = max(float(np.abs(x[2] - y[2]).max()) for x, y in zip(b.trajectory, tail))
-    dR = max(float(np.abs(x[1] - y[1]).max()) for x, y in zip(b.trajectory, tail))
+    dp, dR = traj_diff(b.trajectory, tail)
     check(dp <= POS_TOL_M and dR <= ROT_TOL,
           f"resumed tail vs uninterrupted run: {dp} m, {dR}")
     check(len(poses) > 0 and all(np.isfinite(p).all() for _, _, p, _ in poses),
@@ -1020,6 +1071,208 @@ def phase_resume(seq, frames):
           "load_s": load_s, "max_pos_diff_m": dp, "max_rot_diff": dR,
           "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL,
           "imu_rate_poses": len(poses)})
+
+
+def phase_pipeline_fused(seq, mode):
+    """tpu.fused_frame on the full-width sequence: four runs in turns,
+    split, fused, fused, split, in one process. The fused run: frames,
+    ATE, tracked points (LIVO), frame times, capture seconds, graphs,
+    bytes copied back a frame, host syncs inside each replayed frame
+    (0: frame 0 builds the map and frame 1 is the warm-up and capture),
+    K1 / K2 launches (K2: pyramid levels x iterations a VIO frame, every
+    iteration masked or not) beside the iterations that took effect.
+    Returns (the fused run's trajectory, the split one's, launches)."""
+    cfg = full_width_config()
+    runs = []
+    for fused in (False, True, True, False):
+        pipe, _, ms, syncs, launches = run_sequence(seq, mode,
+                                                    fused_frame=fused)
+        runs.append(dict(fused=fused, traj=pipe.trajectory, ms=ms,
+                         syncs=syncs, launches=launches,
+                         iterations=pipe.photo_iterations,
+                         rows=pipe.log.rows,
+                         graphs=(pipe._frame_graphs.summary() if fused
+                                 else None)))
+        del pipe
+        free_device_memory()
+    fz = runs[1]
+    traj = fz["traj"]
+    frames = len(traj)
+    check(frames == len(runs[0]["traj"]) and frames == len(fz["ms"]),
+          f"fused run: {frames} frames, split {len(runs[0]['traj'])}")
+    ate = synthetic_ate(traj, seq)
+    check(ate < ATE_GATE_M, f"{mode} fused: ATE {ate} m >= {ATE_GATE_M} m")
+    g = fz["graphs"]
+    check(g["graphs"] == 1, f"{g['graphs']} graphs captured, 1 expected")
+    replayed = fz["syncs"][2:]
+    check(max(replayed) == 0, f"host syncs inside replayed frames: {replayed}")
+    check(fz["launches"]["cov_scan"] == frames,
+          f"cov_scan launched {fz['launches']['cov_scan']} times in "
+          f"{frames} fused frames")
+    out = {"phase": "pipeline_fused" if mode == "only_lio"
+           else "pipeline_fused_livo", "mode": mode, "frames": frames,
+           "ate_rmse_m": ate, "first_frame_ms": fz["ms"][0],
+           "capture_frame_ms": fz["ms"][1],
+           "median_frame_ms": statistics.median(fz["ms"][2:]),
+           "p90_frame_ms": float(np.percentile(fz["ms"][2:], 90)),
+           "turns_median_frame_ms": {
+               "order": ["split", "fused", "fused", "split"],
+               "median": [statistics.median(r["ms"][2:]) for r in runs]},
+           "host_syncs_replayed_max": max(replayed),
+           "host_syncs_split_median": statistics.median(runs[0]["syncs"][1:]),
+           **g, "cov_scan_launches": fz["launches"]["cov_scan"],
+           "photo_iteration_launches": fz["launches"]["photo_iteration"],
+           "gather_rows_launches": fz["launches"]["gather_rows"]}
+    if mode == "livo":
+        vio_frames = frames - 1
+        per_frame = cfg.vio.patch_pyrimid_level * cfg.vio.max_iterations
+        check(fz["launches"]["photo_iteration"] == per_frame * vio_frames,
+              f"photo_iteration launched {fz['launches']['photo_iteration']}"
+              f" times in {vio_frames} fused VIO frames, {per_frame} each")
+        tracked = [r["n_tracked"] for r in fz["rows"][3:]]
+        check(np.mean(tracked) > TRACKED_GATE,
+              f"fused: mean n_tracked {np.mean(tracked)} <= {TRACKED_GATE}")
+        out.update({"mean_n_tracked": float(np.mean(tracked)),
+                    "photo_iteration_launches_per_vio_frame":
+                        fz["launches"]["photo_iteration"] / vio_frames,
+                    "photo_iterations_taking_effect": fz["iterations"],
+                    "photo_iterations_per_vio_frame":
+                        fz["iterations"] / vio_frames,
+                    "split_photo_iterations": runs[0]["iterations"]})
+    emit(out)
+    return traj, runs[0]["traj"], fz["launches"]
+
+
+def phase_parity_fused(traj_fused, traj_split, mode):
+    """The fused card run against the split card run over every frame, at
+    the golden tolerances (the float scatter-adds of the map insert run in
+    no fixed order on the card; on the CPU the two are bit for bit the
+    same, tests/test_torch_frame_modes.py)."""
+    dp, dR = traj_diff(traj_fused, traj_split)
+    check(dp <= POS_TOL_M and dR <= ROT_TOL,
+          f"{mode} fused vs split on the card: {dp} m, {dR}")
+    emit({"phase": "parity_fused" if mode == "only_lio"
+          else "parity_fused_livo", "frames": len(traj_fused),
+          "max_pos_diff_m": dp, "max_rot_diff": dR, "pos_tol_m": POS_TOL_M,
+          "rot_tol": ROT_TOL})
+
+
+def phase_profile_fused(seq, mode, warm=12, frames=10):
+    """Steady fused frames under torch.profiler: kernel ms, idle share and
+    kernels a frame; K1 and K2 found inside the replays by kernel name,
+    with their ms a frame."""
+    out = profile_frames(seq, mode, warm, frames, fused=True)
+    check(out["cov_scan_kernels_per_frame"] > 0.9,
+          f"K1 not found inside the replays: {out['cov_scan_kernels_per_frame']}")
+    if mode == "livo":
+        check(out["photo_iteration_kernels_per_frame"] > 19.0,
+              "K2 not found inside the replays: "
+              f"{out['photo_iteration_kernels_per_frame']} a frame")
+    emit({"phase": "profile_fused" if mode == "only_lio"
+          else "profile_fused_livo", **out})
+    return out
+
+
+def phase_stage_timing(seq):
+    """LIVO with tpu.stage_timing (the map insert before VIO, the device
+    loops, CUDA events around each stage read once a frame): every
+    stage's ms > 0 on each staged frame, the table printed, and the
+    trajectory against the split run with deferred_map_insert = False
+    (the same order), beside two such split runs against each other: the
+    card's own spread between runs of one configuration (its scatter-adds
+    run in no fixed order)."""
+    from fast_livo2_tpu_torch.utils.timing import STAGES
+
+    pipe, _, ms, syncs, _ = run_sequence(seq, "livo", stage_timing=True)
+    rows = [r for r in pipe.log.rows if "lio_ms" in r]
+    check(len(rows) == len(pipe.trajectory) - 1,
+          f"{len(rows)} staged frames of {len(pipe.trajectory)}")
+    bad = [(i, k) for i, r in enumerate(rows) for k in STAGES
+           if not r.get(f"{k}_ms", 0.0) > 0.0]
+    check(not bad, f"stages without time: {bad[:8]}")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        table = pipe.print_stage_table(last_n=20)
+    check(printed.getvalue().strip() == table.strip()
+          and all(n in table for n in STAGES + ("Total",)),
+          f"stage table:\n{table}")
+    staged = pipe.trajectory
+    stage_ms = {k: statistics.median(r[f"{k}_ms"] for r in rows)
+                for k in STAGES}
+    del pipe
+    free_device_memory()
+    ref = []
+    for _ in range(2):
+        p = run_sequence(seq, "livo", deferred_map_insert=False)[0]
+        ref.append(p.trajectory)
+        del p
+        free_device_memory()
+    dp, dR = traj_diff(staged, ref[0])
+    spread_p, spread_R = traj_diff(ref[1], ref[0])
+    check(dp <= POS_TOL_M and dR <= ROT_TOL,
+          f"staged vs split (deferred_map_insert = False): {dp} m, {dR}")
+    emit({"phase": "stage_timing", "frames": len(staged),
+          "staged_frames": len(rows), "median_stage_ms": stage_ms,
+          "median_stage_total_ms": statistics.median(
+              sum(r[f"{k}_ms"] for k in STAGES) for r in rows),
+          "median_frame_ms": statistics.median(ms[1:]),
+          "host_syncs_per_frame_median": statistics.median(syncs[1:]),
+          "max_pos_diff_m": dp, "max_rot_diff": dR,
+          "within_1e-4_m": dp <= 1e-4,
+          "split_run_spread_pos_m": spread_p, "split_run_spread_rot": spread_R,
+          "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL, "table": table})
+
+
+def phase_resume_fused(seq, frames):
+    """tpu.fused_frame across a checkpoint: the saver runs to half the
+    frames, saves and runs on uninterrupted; a second fused pipeline that
+    has already captured its graph (3 frames of its own) loads the
+    checkpoint, so that its next replay has to see the loaded state in
+    its static buffers, and runs the rest, held to the golden tolerances
+    against the uninterrupted run."""
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.io import checkpoint
+
+    cfg = full_width_config()
+    cfg.tpu.fused_frame = True
+    half = frames // 2
+    a = LIVOPipeline(cfg, "livo", device="cuda")
+    a.push_sequence(seq)
+    check(a.poll(max_frames=half, flush=True) == half, "first half")
+    ck = os.path.join(REPO, "build", "smoke_resume_fused.npz")
+    checkpoint.save(ck, a)
+    a.poll(flush=True)
+    a._finalize_host_views()
+    tail = a.trajectory[half:]
+    del a
+    free_device_memory()
+    b = LIVOPipeline(cfg, "livo", device="cuda")
+    b.push_sequence(seq)
+    own = 3
+    check(b.poll(max_frames=own, flush=True) == own
+          and len(b._frame_graphs.graphs) == 1,
+          "the loading pipeline did not capture its graph first")
+    static = [t.data_ptr() for t in b._frame_graphs.static_tensors()]
+    checkpoint.load(ck, b)
+    b._img_queue = []  # camera frames are not saved: push those after the cut
+    exposure = cfg.time_offset.exposure_time_init
+    for t, img in seq.images:
+        if t + exposure > b.last_update_time:
+            b.push_image(t, img)
+    b.poll(flush=True)
+    b._finalize_host_views()
+    got = b.trajectory[own:]
+    check([t.data_ptr() for t in b._frame_graphs.static_tensors()] == static
+          and b.packed.data_ptr() == static[0]
+          and len(b._frame_graphs.graphs) == 1,
+          "the resumed frames did not replay the graph on its buffers")
+    dp, dR = traj_diff(got, tail)
+    check(dp <= POS_TOL_M and dR <= ROT_TOL,
+          f"fused resumed tail vs uninterrupted fused run: {dp} m, {dR}")
+    emit({"phase": "resume_fused", "frames_before": half,
+          "frames_after": len(got), "max_pos_diff_m": dp,
+          "max_rot_diff": dR, "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL})
+    del b
+    free_device_memory()
 
 
 def smooth_image(H, W, seed=0):
@@ -1124,6 +1377,22 @@ def main(argv):
         k3, k3_phase_launches = phase_kernel_gather()
         phase_run_cli(seq, len(traj))
         phase_resume(seq, len(traj))
+        free_device_memory()
+        fused = {}
+        for mode in ("only_lio", "livo"):
+            traj_f, traj_s, fused[mode] = phase_pipeline_fused(seq, mode)
+            phase_parity_fused(traj_f, traj_s, mode)
+            fused_frame = phase_profile_fused(seq, mode)
+            free_device_memory()
+        phase_stage_timing(seq)
+        phase_resume_fused(seq, len(traj))
+        # the fused LIVO path's run (tpu.fused_frame: the kernels launch
+        # from its graph's replays), and K1's and K2's ms a replayed frame
+        for k, name in ((k1, "cov_scan"), (k2, "photo_iteration")):
+            k["launches_fused"] = fused["livo"][name]
+            k["fused_device_ms_per_frame"] = fused_frame[f"{name}_ms_per_frame"]
+            check(k["launches_fused"] > 0,
+                  f"{name} never launched on the fused LIVO path")
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1132,6 +1401,7 @@ def main(argv):
     k1["launches"] = launches["cov_scan"]
     k1["main_path_device_ms_per_frame"] = k1_frame["cov_scan_ms_per_frame"]
     k2["launches"] = launches["photo_iteration"]
+    k3["launches_fused"] = fused["livo"]["gather_rows"]
     k3["launches"] = launches["gather_rows"]
     k3["phase_launches"] = k3_phase_launches
     emit({"kernels": [k1, k2, k3]})

@@ -7,13 +7,26 @@ src/voxel_map.cpp:338-511) as batched tensor ops: each iteration searches
 weighted 6-dof normal equations and solves the 19-dim gain.
 
 Control flow. The JAX package runs the iterations as a lax.while_loop
-with a lax.cond fresh/reuse branch. Here the loop is a Python loop whose
-rematch/convergence logic (:477-499) runs on the host: after every
-iteration except a forced last one it reads ONE device bool (converged),
-so a frame costs at most max_iterations - 1 host syncs (at most 4 at the
-default 5 iterations), and match_planes runs exactly when the JAX code
-would run it. The state it returns is the JAX loop's.
+with a lax.cond fresh/reuse branch. Here the loop is a Python loop in
+one of two forms over one body:
+- early exit (the split frame): the rematch/convergence logic (:477-499)
+  runs on the host, reading ONE device bool (converged) after every
+  iteration but a forced last one, so a frame costs at most
+  max_iterations - 1 host syncs (4 at the default 5 iterations), and
+  match_planes runs exactly when the JAX code would run it;
+- device loop (`device_loop=True`, the fused and staged frames): all
+  max_iterations iterations run with no host read, and every carried
+  value (state, the kept gain G, the match, rematch, the stop flag) is
+  updated under torch.where(active, new, old), as the JAX body masks
+  its carry. Where `fresh` may be true the iteration computes both the
+  full search and the cheap re-gate and selects each PlaneMatch field
+  (JAX's lax.cond runs one branch).
+Both forms give the JAX loop's state; on the same inputs they give the
+same bits (the same ops in the same order for every iteration that
+takes effect).
 """
+
+import functools
 
 from typing import NamedTuple
 
@@ -21,12 +34,20 @@ import torch
 
 from ..ops import so3
 from ..ops import voxel_hash as _vh
-from .state import DIM_STATE, NavState, boxminus, boxplus
+from .state import DIM_STATE, NavState, boxminus, boxplus, select
 from .voxel_map import PlaneMatch, VoxelMap, VoxelMapConfig, match_planes, quad6
 
 
 def _bucket_centers(ck: torch.Tensor) -> torch.Tensor:
     return _vh._bucket(ck, 1 << 16)
+
+
+@functools.lru_cache(maxsize=8)
+def _tan_var(degree_inc: float) -> float:
+    """float32 sin^2(deg2rad(degree_inc)), evaluated on the host once per
+    value (no copy to the device per call)."""
+    return float(torch.sin(torch.deg2rad(
+        torch.tensor(degree_inc, dtype=torch.float32))) ** 2)
 
 
 def calc_body_cov(pts_b: torch.Tensor, range_inc: float, degree_inc: float):
@@ -40,10 +61,7 @@ def calc_body_cov(pts_b: torch.Tensor, range_inc: float, degree_inc: float):
     rang = torch.sqrt(r2)
     direction = pts_b / rang[:, None]
     range_var = range_inc * range_inc
-    # float32 sin^2(deg2rad(degree_inc)), evaluated on the host (no copy
-    # to the device per call)
-    tan_var = float(torch.sin(torch.deg2rad(
-        torch.tensor(degree_inc, dtype=torch.float32))) ** 2)
+    tan_var = _tan_var(degree_inc)
     # Orthobasis of the tangent plane (same construction as :26-31).
     dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
     b1 = torch.stack([torch.ones_like(dx), torch.ones_like(dx), -(dx + dy) / dz],
@@ -117,6 +135,7 @@ def lio_update(
     rematch_fresh: bool = True,
     fresh_every_iter: bool = False,
     plane_info_cap: int = 0,
+    device_loop: bool = False,
 ) -> LIOResult:
     """Iterated point-to-plane ESIKF update (StateEstimation,
     voxel_map.cpp:338-511). pts_body: (N, 3) undistorted, downsampled
@@ -125,7 +144,9 @@ def lio_update(
     A full correspondence search (match_planes) runs on iteration 0 and
     on the rematch round after convergence (with rematch_fresh), or on
     every iteration (fresh_every_iter); other iterations reuse the
-    carried plane fields and only re-evaluate distance and 3-sigma gate."""
+    carried plane fields and only re-evaluate distance and 3-sigma gate.
+    `device_loop`: run every iteration masked, with no host read (see
+    the module docstring)."""
     f32 = cov_prop.dtype
     dev = cov_prop.device
     body_cov = calc_body_cov(pts_body, dept_err, beam_err)
@@ -144,39 +165,49 @@ def lio_update(
     rot_var = cov_prop[0:3, 0:3]
     t_var = cov_prop[3:6, 3:6]
 
+    def search(state, pts_w):
+        var_w = (torch.einsum("ij,njk,lk->nil", state.rot, body_cov,
+                              state.rot)
+                 + crossmat @ rot_var @ crossmat_T + t_var)
+        return match_planes(vmap_state, pts_w, var_w, valid, map_cfg)
+
+    def regate(match, pts_w):
+        nrm = match.normal
+        dist = torch.sum(nrm * pts_w, dim=-1) + match.d
+        sigma_l = match.sigma_plane + torch.einsum(
+            "ni,nij,nj->n", nrm, var_meas_rot, nrm)
+        ok = match.valid & (
+            dist.abs() < map_cfg.sigma_num
+            * torch.sqrt(torch.clamp(sigma_l, min=1e-12)))
+        return match._replace(dist=dist, valid=ok)
+
     state = state_prop
     match = None
-    G = None
-    fresh = True
+    G_keep = None
+    fresh = True  # a host bool in the early-exit form, else a device bool
     rematch = 0
-    it = 0
-    while True:
+    stop = None  # the device loop's carried stop flag
+    for it in range(max_iterations):
         pts_w = pts_imu @ state.rot.T + state.pos
-        if fresh:
-            var_w = (torch.einsum("ij,njk,lk->nil", state.rot, body_cov,
-                                  state.rot)
-                     + crossmat @ rot_var @ crossmat_T + t_var)
-            match = match_planes(vmap_state, pts_w, var_w, valid, map_cfg)
+        if not device_loop:
+            match_it = search(state, pts_w) if fresh else regate(match, pts_w)
+        elif it == 0 or fresh_every_iter:
+            match_it = search(state, pts_w)
+        elif rematch_fresh:  # the rematch round may search afresh
+            match_it = select(fresh, search(state, pts_w), regate(match, pts_w))
         else:
-            nrm = match.normal
-            dist = torch.sum(nrm * pts_w, dim=-1) + match.d
-            sigma_l = match.sigma_plane + torch.einsum(
-                "ni,nij,nj->n", nrm, var_meas_rot, nrm)
-            ok = match.valid & (
-                dist.abs() < map_cfg.sigma_num
-                * torch.sqrt(torch.clamp(sigma_l, min=1e-12)))
-            match = match._replace(dist=dist, valid=ok)
+            match_it = regate(match, pts_w)
 
-        n = match.normal
-        use = match.valid & valid
+        n = match_it.normal
+        use = match_it.valid & valid
         # H row i = [ (p_imu_i)^ R^T n_i ;  n_i ]   (:453-454)
         A = torch.einsum("nij,jk,nk->ni", crossmat, state.rot.T, n)
         H = torch.cat([A, n], dim=-1)  # (N, 6)
-        z = -match.dist
+        z = -match_it.dist
 
         # Adaptive noise (:425-449) at the propagated state.
-        a_prop = pw_prop - match.center
-        sigma_l = (quad6(match.cov_nn, a_prop) + quad6(match.cov_qq, n)
+        a_prop = pw_prop - match_it.center
+        sigma_l = (quad6(match_it.cov_nn, a_prop) + quad6(match_it.cov_qq, n)
                    + torch.einsum("ni,nij,nj->n", n, var_meas_rot, n))
         R_inv = torch.where(use, 1.0 / (1e-3 + sigma_l), 0.0)
         if plane_info_cap > 0:
@@ -185,7 +216,7 @@ def lio_update(
             # cap / points_on_plane)), planes identified by a lossy
             # 16-bit hash of their rounded centers (collisions share a
             # cap, as in the JAX package).
-            ck = torch.round(match.center * 8.0).to(torch.int32)
+            ck = torch.round(match_it.center * 8.0).to(torch.int32)
             h = _bucket_centers(ck).long()
             cnt = cov_prop.new_zeros((1 << 16) + 1).index_add_(
                 0, torch.where(use, h, 1 << 16), torch.ones_like(R_inv))
@@ -202,21 +233,46 @@ def lio_update(
         G[:, 0:6] = K_1[:, 0:6] @ HTH6
         vec = boxminus(state_prop, state)
         solution = K_1[:, 0:6] @ HTz6 + vec - G[:, 0:6] @ vec[0:6]
-        state = boxplus(state, solution)
+        state_it = boxplus(state, solution)
 
+        if not device_loop:
+            state, G_keep, match = state_it, G, match_it
+            if it == max_iterations - 1:
+                break  # forced stop: no convergence read needed
+            rot_add = torch.linalg.norm(solution[0:3])
+            t_add = torch.linalg.norm(solution[3:6])
+            converged = bool((rot_add * 57.3 < 0.01)
+                             & (t_add * 100.0 < 0.015))  # :477
+            inc = converged or (rematch == 0 and it == max_iterations - 2)
+            rematch += int(inc)
+            if rematch >= 2:
+                break
+            fresh = (inc and rematch_fresh) or fresh_every_iter
+            continue
+
+        if it == 0:  # always taken: nothing to mask yet
+            state, G_keep, match = state_it, G, match_it
+            stop = torch.zeros((), dtype=torch.bool, device=dev)
+            rematch = torch.zeros((), dtype=torch.int32, device=dev)
+            active = ~stop
+        else:
+            active = ~stop
+            state = select(active, state_it, state)
+            G_keep = torch.where(active, G, G_keep)
+            match = select(active, match_it, match)
         if it == max_iterations - 1:
-            break  # forced stop: no convergence read needed
+            break  # the forced stop
         rot_add = torch.linalg.norm(solution[0:3])
         t_add = torch.linalg.norm(solution[3:6])
-        converged = bool((rot_add * 57.3 < 0.01) & (t_add * 100.0 < 0.015))  # :477
-        inc = converged or (rematch == 0 and it == max_iterations - 2)
-        rematch += int(inc)
-        if rematch >= 2:
-            break
-        fresh = (inc and rematch_fresh) or fresh_every_iter
-        it += 1
+        converged = (rot_add * 57.3 < 0.01) & (t_add * 100.0 < 0.015)
+        if it == max_iterations - 2:
+            converged = converged | (rematch == 0)
+        inc = active & converged
+        rematch = rematch + inc.to(torch.int32)
+        stop = stop | (rematch >= 2)
+        fresh = inc if rematch_fresh else False
 
-    cov_post = (torch.eye(DIM_STATE, dtype=f32, device=dev) - G) @ cov_prop
+    cov_post = (torch.eye(DIM_STATE, dtype=f32, device=dev) - G_keep) @ cov_prop
 
     # Posterior world points + covariances for the map update
     # (LIVMapper.cpp:413-423).

@@ -1,6 +1,6 @@
 """The LIVO pipeline: measurement sync + per-frame LIO and VIO steps on
-the device (port of fast_livo2_tpu/core/pipeline.py: LIVO in split mode,
-ONLY_LIO and ONLY_LO).
+the device (port of fast_livo2_tpu/core/pipeline.py: LIVO, ONLY_LIO and
+ONLY_LO, in split, fused and staged frames).
 
 Equivalent of LIVMapper (reference src/LIVMapper.cpp): the host owns the
 timestamp-driven sync state machine (sync_packages, LIVMapper.cpp:
@@ -16,12 +16,23 @@ the map insert, the VIO half, then the deferred insert. ONLY_LIO cuts at
 scan ends; ONLY_LO is LiDAR-only with constant-velocity propagation.
 Images ship as uint8 and convert to float32 on the device.
 
-Host syncs per frame: the LIO loop reads one bool per iteration
-(core/lio.py, at most max_iterations - 1); the photometric loop reads
-one per iteration but the last of each pyramid level (core/vio.py, at
-most 16 at the defaults); with map sliding enabled one 3-float position
-read every 10 frames. Trajectory and diagnostics stay on the device
-until `_finalize_host_views` converts them once, at the end.
+Three frame forms, as in the JAX package (the map-building first frame
+is always split):
+- split (the default): the LIO half, the VIO half and the deferred
+  insert as eager calls with the early-exit loops. Host syncs per frame:
+  the LIO loop reads one bool per iteration (core/lio.py, at most
+  max_iterations - 1); the photometric loop one per iteration but the
+  last of each pyramid level (core/vio.py, at most 16 at the defaults).
+- fused (`tpu.fused_frame`): the whole frame in one function with the
+  device loops (`_fused_frame`), which on the card is captured once per
+  frame shape as a CUDA graph and replayed once a frame
+  (core/frame_graph.py); on the CPU it runs eagerly. No host read.
+- staged (`tpu.stage_timing`, LIVO and ONLY_LIO): the frame as timed
+  stages (`_staged_frame`), the map insert before VIO, the device loops;
+  FrameLog rows carry `{stage}_ms` and `print_stage_table` renders them.
+With map sliding enabled every form reads one 3-float position every 10
+frames. Trajectory and diagnostics stay on the device until
+`_finalize_host_views` converts them once, at the end.
 
 Outputs, as in the JAX package: the trajectory; with
 `pcd_save.pcd_save_en` each frame's posterior world points (coloured from
@@ -36,7 +47,7 @@ writes a COLMAP text model. io/checkpoint.py saves and resumes the run.
 
 Not in this slice (the constructor raises NotImplementedError naming the
 ROADMAP.md item): raycast recovery and the inverse-compositional update,
-per-stage timing, the fused frame, keyframes and online refinement.
+keyframes and online refinement.
 """
 
 import bisect
@@ -59,12 +70,8 @@ from . import vio as vio_mod
 from . import voxel_map as vmap_mod
 from .state import init_cov, init_state, pack_state, unpack_state
 
-# (config predicate, flag name, ROADMAP.md item that ports it)
-_UNPORTED_FLAGS = (
-    (lambda c: c.tpu.stage_timing, "tpu.stage_timing", "Queue 1 item 17"),
-    (lambda c: c.tpu.fused_frame, "tpu.fused_frame", "Queue 1 item 17"),
-)
-# the same, for flags that only the VIO half reads (LIVO mode)
+# (config predicate, flag name, ROADMAP.md item that ports it), for flags
+# that only the VIO half reads (LIVO mode)
 _UNPORTED_VIO_FLAGS = (
     (lambda c: c.vio.raycast_en, "vio.raycast_en", "Queue 1 item 12"),
     (lambda c: c.vio.inverse_composition_en, "vio.inverse_composition_en",
@@ -123,8 +130,7 @@ class LIVOPipeline:
             raise ValueError(
                 f"slam_mode {slam_mode!r} not in {self.SLAM_MODES} "
                 "('only_lio' = no camera; 'only_lo' = no camera, no IMU)")
-        flags = _UNPORTED_FLAGS + (_UNPORTED_VIO_FLAGS if slam_mode == "livo"
-                                   else ())
+        flags = _UNPORTED_VIO_FLAGS if slam_mode == "livo" else ()
         for pred, name, item in flags:
             if pred(cfg):
                 raise NotImplementedError(
@@ -236,6 +242,13 @@ class LIVOPipeline:
         self.mesh_seconds: Optional[dict] = None  # save_mesh's split
         self._last_slide_pos = np.zeros(3)
         self._pos_snapshot = None  # position copy consumed at the next check
+        # tpu.fused_frame on the card: one captured CUDA graph a frame
+        # (on the CPU the same frame function runs eagerly)
+        self._frame_graphs = None
+        if cfg.tpu.fused_frame and self.device.type == "cuda":
+            from .frame_graph import FrameGraphs
+
+            self._frame_graphs = FrameGraphs(self)
 
     def _put(self, x):
         """Upload a host array (or numpy scalar) to this pipeline's device.
@@ -257,33 +270,78 @@ class LIVOPipeline:
 
     # ---------- the per-frame step ----------
 
+    def _stage_propagate(self, packed_sc, imu_pack):
+        """IMU propagation (K1 inside): (state_prop, cov_prop, poses);
+        imu_pack is the (K, 9) packed IMU intervals, or in only_lo mode
+        the scalar packet duration (constant-velocity model, poses
+        None)."""
+        state, cov = unpack_state(packed_sc)
+        if self.slam_mode == "only_lo":
+            state_prop, cov_prop = imu_mod.propagate_without_imu(
+                state, cov, imu_pack, self.noise)
+            return state_prop, cov_prop, None
+        batch = imu_mod.ImuBatch(
+            gyr=imu_pack[:, 0:3], acc=imu_pack[:, 3:6], dt=imu_pack[:, 6],
+            offs_end=imu_pack[:, 7], valid=imu_pack[:, 8])
+        return imu_mod.propagate(state, cov, batch, self.noise)
+
+    def _stage_undistort(self, state_prop, poses, imu_pack, pts_pack):
+        """(undistorted points (N, 3), valid (N,)) of the points packet."""
+        pts, t_offs, valid = self._unpack_pts(pts_pack)
+        if self.slam_mode == "only_lo":
+            return imu_mod.undistort_without_imu(pts, t_offs, imu_pack,
+                                                 state_prop), valid
+        return imu_mod.undistort(pts, t_offs, poses, state_prop, self.ext_R,
+                                 self.ext_T), valid
+
+    def _stage_downsample(self, und, valid):
+        return lio_mod.voxel_downsample(und, valid,
+                                        self.cfg.preprocess.filter_size_surf,
+                                        self.cfg.tpu.max_points_down)
+
+    def _stage_lio(self, state_prop, cov_prop, vmap_state, down, down_valid,
+                   device_loop: bool):
+        """The iterated LIO update: (packed_sc, diag (6,), pg)."""
+        cfg = self.cfg
+        res = lio_mod.lio_update(
+            state_prop, cov_prop, vmap_state, down, down_valid,
+            self.ext_R, self.ext_T, self.map_cfg,
+            dept_err=cfg.lio.dept_err, beam_err=cfg.lio.beam_err,
+            max_iterations=cfg.lio.max_iterations,
+            rematch_fresh=cfg.tpu.lio_rematch_fresh,
+            fresh_every_iter=cfg.tpu.lio_fresh_every_iter,
+            plane_info_cap=cfg.tpu.lio_plane_info_cap,
+            device_loop=device_loop,
+        )
+        var_w6 = vmap_mod.sym6(res.var_w)
+        normal = torch.where(res.match.valid[:, None], res.match.normal, 0.0)
+        zero = res.mean_residual.new_zeros(())
+        diag = torch.stack([
+            res.n_effective.to(torch.float32), res.mean_residual,
+            zero, zero, zero, _plane_cond(res.match, down_valid),
+        ])
+        return (pack_state(res.state, res.cov), diag,
+                ScanPoints(res.pts_w, normal, var_w6, down_valid))
+
+    def _insert(self, vmap_state, pg: ScanPoints):
+        """The frame's map insert (a new map; the input is untouched)."""
+        return vmap_mod.update_map(vmap_state, pg.pts_w, pg.var_w6, pg.valid,
+                                   self.map_cfg, compact=True)
+
     def _frame_step(self, packed_sc, vmap_state, imu_pack, pts_pack,
-                    first: bool, do_map: bool = True):
+                    first: bool, do_map: bool = True,
+                    device_loop: bool = False):
         """One frame's LIO half on the device. imu_pack: (K, 9) packed IMU
         intervals (a scalar packet duration in only_lo mode); pts_pack:
         the points wire packet (see `_unpack_pts`). Returns (packed_sc,
         map, diag (6,), pg) where pg (a ScanPoints) feeds the VIO half and
         the deferred map insert (None on the first frame)."""
         cfg = self.cfg
-        state, cov = unpack_state(packed_sc)
-        pts, t_offs, valid = self._unpack_pts(pts_pack)
-
-        if self.slam_mode == "only_lo":
-            dt = imu_pack  # scalar packet duration in this mode
-            state_prop, cov_prop = imu_mod.propagate_without_imu(
-                state, cov, dt, self.noise)
-            und = imu_mod.undistort_without_imu(pts, t_offs, dt, state_prop)
-        else:
-            batch = imu_mod.ImuBatch(
-                gyr=imu_pack[:, 0:3], acc=imu_pack[:, 3:6], dt=imu_pack[:, 6],
-                offs_end=imu_pack[:, 7], valid=imu_pack[:, 8])
-            state_prop, cov_prop, poses = imu_mod.propagate(
-                state, cov, batch, self.noise)
-            und = imu_mod.undistort(pts, t_offs, poses, state_prop,
-                                    self.ext_R, self.ext_T)
-        down, down_valid = lio_mod.voxel_downsample(
-            und, valid, cfg.preprocess.filter_size_surf,
-            cfg.tpu.max_points_down)
+        state_prop, cov_prop, poses = self._stage_propagate(packed_sc,
+                                                            imu_pack)
+        und, valid = self._stage_undistort(state_prop, poses, imu_pack,
+                                           pts_pack)
+        down, down_valid = self._stage_downsample(und, valid)
         if first:
             # BuildVoxelMap with the prior state (LIVMapper.cpp:362-366).
             body_cov = lio_mod.calc_body_cov(down, cfg.lio.dept_err,
@@ -300,44 +358,87 @@ class LIVOPipeline:
             diag = torch.zeros((6,), dtype=torch.float32, device=self.device)
             return pack_state(state_prop, cov_prop), vmap_state, diag, None
 
-        res = lio_mod.lio_update(
-            state_prop, cov_prop, vmap_state, down, down_valid,
-            self.ext_R, self.ext_T, self.map_cfg,
-            dept_err=cfg.lio.dept_err, beam_err=cfg.lio.beam_err,
-            max_iterations=cfg.lio.max_iterations,
-            rematch_fresh=cfg.tpu.lio_rematch_fresh,
-            fresh_every_iter=cfg.tpu.lio_fresh_every_iter,
-            plane_info_cap=cfg.tpu.lio_plane_info_cap,
-        )
-        var_w6 = vmap_mod.sym6(res.var_w)
-        normal = torch.where(res.match.valid[:, None], res.match.normal, 0.0)
+        packed_sc, diag, pg = self._stage_lio(state_prop, cov_prop,
+                                              vmap_state, down, down_valid,
+                                              device_loop)
         if do_map:
-            vmap_state = vmap_mod.update_map(
-                vmap_state, res.pts_w, var_w6, down_valid, self.map_cfg,
-                compact=True)
-        zero = res.mean_residual.new_zeros(())
-        diag = torch.stack([
-            res.n_effective.to(torch.float32), res.mean_residual,
-            zero, zero, zero, _plane_cond(res.match, down_valid),
-        ])
-        return (pack_state(res.state, res.cov), vmap_state, diag,
-                ScanPoints(res.pts_w, normal, var_w6, down_valid))
+            vmap_state = self._insert(vmap_state, pg)
+        return packed_sc, vmap_state, diag, pg
 
-    def _vio_half(self, packed_sc, img, pg: ScanPoints):
-        """The VIO half of a LIVO frame (split mode) on the u8 image `img`
-        (H, W). Updates the pool and ring in place. Returns (packed_sc,
-        vdiag (3,) [n_tracked, n_added, mean_error], photometric
-        iterations run)."""
+    def _vio_half(self, packed_sc, img, pg: ScanPoints, fid, vmap_state,
+                  device_loop: bool = False):
+        """The VIO half of a LIVO frame on the u8 image `img` (H, W), frame
+        id `fid` (0-d int32 tensor), reading `vmap_state`. Updates the
+        pool's rows and the ring in place. Returns (packed_sc, vdiag (3,)
+        [n_tracked, n_added, mean_error], photometric iterations that
+        took effect, the pool with its new allocation cursor)."""
         state, cov = unpack_state(packed_sc)
         vres = vio_mod.vio_step(
-            state, cov, self.pool, self.ring, self.vmap_state,
+            state, cov, self.pool, self.ring, vmap_state,
             img.to(torch.float32), pg.pts_w, pg.normal, pg.var_w6, pg.valid,
-            self.frame_id, self.cam, self.Rci, self.Pci, self.vio_cfg,
-            self.map_cfg)
-        self.pool, self.ring = vres.pool, vres.ring
+            fid, self.cam, self.Rci, self.Pci, self.vio_cfg, self.map_cfg,
+            device_loop=device_loop)
         vdiag = torch.stack([vres.n_tracked.to(torch.float32),
                              vres.n_added.to(torch.float32), vres.mean_error])
-        return pack_state(vres.state, vres.cov), vdiag, vres.photo_iterations
+        return (pack_state(vres.state, vres.cov), vdiag,
+                vres.photo_iterations, vres.pool)
+
+    def _fused_frame(self, imu_pack, pts_pack, img, fid, use_vio: bool,
+                     defer_map: bool):
+        """A whole non-first frame with the device loops and no host read
+        (tpu.fused_frame): the LIO half, on VIO frames the VIO half, and
+        the map insert (after VIO when deferred). Reads the pipeline's
+        state and writes it back in place (`copy_`) into the same tensors
+        (the static buffers of the captured graph, core/frame_graph.py).
+        Returns (diag, vdiag or None, iterations or None, pg): fresh
+        tensors that a replay overwrites."""
+        vmap = self.vmap_state
+        packed, vmap, diag, pg = self._frame_step(
+            self.packed, vmap, imu_pack, pts_pack, first=False,
+            do_map=not defer_map, device_loop=True)
+        vdiag = n_it = None
+        if use_vio:
+            packed, vdiag, n_it, pool = self._vio_half(
+                packed, img, pg, fid, vmap, device_loop=True)
+            self.pool.alloc.copy_(pool.alloc)
+        if defer_map:
+            vmap = self._insert(vmap, pg)
+        self.packed.copy_(packed)
+        for dst, src in zip(self.vmap_state, vmap):
+            dst.copy_(src)
+        return diag, vdiag, n_it, pg
+
+    def _staged_frame(self, imu_pack, pts_pack, img, fid, use_vio: bool):
+        """A non-first frame as timed stages (tpu.stage_timing; the JAX
+        package's _run_frame_staged): propagate, undistort, downsample,
+        lio, map, vio, built from the same calls as `_frame_step`, the map
+        insert before VIO (the deferred_map_insert = False order), the
+        device loops. Returns (diag, vdiag or None, iterations or None,
+        pg, {stage}_ms): CUDA event time between the stage's bounds on
+        the card (read once, at the end), perf_counter on the CPU."""
+        from ..utils.timing import StageClock
+
+        clock = StageClock(self.device)
+        state_prop, cov_prop, poses = self._stage_propagate(self.packed,
+                                                            imu_pack)
+        clock.lap("propagate")
+        und, valid = self._stage_undistort(state_prop, poses, imu_pack,
+                                           pts_pack)
+        clock.lap("undistort")
+        down, down_valid = self._stage_downsample(und, valid)
+        clock.lap("downsample")
+        self.packed, diag, pg = self._stage_lio(
+            state_prop, cov_prop, self.vmap_state, down, down_valid,
+            device_loop=True)
+        clock.lap("lio")
+        self.vmap_state = self._insert(self.vmap_state, pg)
+        clock.lap("map")
+        vdiag = n_it = None
+        if use_vio:
+            self.packed, vdiag, n_it, self.pool = self._vio_half(
+                self.packed, img, pg, fid, self.vmap_state, device_loop=True)
+            clock.lap("vio")
+        return diag, vdiag, n_it, pg, clock.read()
 
     def _unpack_pts(self, pts_pack):
         """(pts (N, 3), t_offs (N,), valid (N,)) from either wire format:
@@ -692,9 +793,13 @@ class LIVOPipeline:
             return False
 
         t_frame0 = time.perf_counter()
-        if self.cfg.evo.pose_output_en:
-            self.trace_pre.append((t_ev, self.packed))
         first = not self.map_inited
+        # The fused frames write the state back in place: with them on,
+        # what is kept past the next frame is copied.
+        fused = self.cfg.tpu.fused_frame and not first
+        keep = torch.clone if self.cfg.tpu.fused_frame else (lambda t: t)
+        if self.cfg.evo.pose_output_en:
+            self.trace_pre.append((t_ev, keep(self.packed)))
         # IMU-rate odometry over the interval this frame closes, from the
         # PREVIOUS posterior, before last_update_time advances.
         if (self.cfg.uav.imu_rate_odom and self.slam_mode != "only_lo"
@@ -708,25 +813,51 @@ class LIVOPipeline:
         self._prefetch = None
         self.last_update_time = t_ev
         use_vio = self._use_images and img is not None and not first
-        defer_map = self.cfg.tpu.deferred_map_insert and not first
-        self.packed, self.vmap_state, diag, pg = self._frame_step(
-            self.packed, self.vmap_state, imu_pack, pts_pack,
-            first=first, do_map=not defer_map)
-        vdiag = None
+        # Per-stage timing (the JAX package's condition, pipeline.py:
+        # 1064-1065) takes precedence over the fused frame.
+        staged = (self.cfg.tpu.stage_timing and not first
+                  and self.slam_mode != "only_lo")
+        defer_map = (self.cfg.tpu.deferred_map_insert and not first
+                     and not staged)
+        img_dev = None
         if use_vio:
-            # Split mode: the VIO half reads the map as the LIO half left
-            # it (without this frame's insert when that is deferred).
             # push_image queued it as uint8; _ship_images may not have
             # uploaded it yet (tpu.img_upload_ahead = 0)
             img_dev = img if isinstance(img, torch.Tensor) else self._put(img)
-            self.packed, vdiag, n_it = self._vio_half(self.packed, img_dev, pg)
-            self.photo_iterations += n_it
-        if defer_map:
-            # The insert queues after the pose-producing work; the next
-            # frame's match sees the updated map.
-            self.vmap_state = vmap_mod.update_map(
-                self.vmap_state, pg.pts_w, pg.var_w6, pg.valid, self.map_cfg,
-                compact=True)
+        # the frame id as a device scalar: a graph reads it from a buffer
+        fid = self._put(np.int32(self.frame_id)) if use_vio else None
+        vdiag = n_it = stage_ms = None
+        if staged:
+            diag, vdiag, n_it, pg, stage_ms = self._staged_frame(
+                imu_pack, pts_pack, img_dev, fid, use_vio)
+        elif fused:
+            run = (self._frame_graphs.run if self._frame_graphs is not None
+                   else self._fused_frame)
+            diag, vdiag, n_it, pg = run(imu_pack, pts_pack, img_dev, fid,
+                                        use_vio, defer_map)
+            # a replay overwrites its outputs: copy what is kept
+            diag = diag.clone()
+            vdiag = None if vdiag is None else vdiag.clone()
+            if (self.cfg.publish.pub_effect_point_en
+                    or self.cfg.pcd_save.pcd_save_en):
+                pg = ScanPoints(*(t.clone() for t in pg))
+        else:
+            self.packed, self.vmap_state, diag, pg = self._frame_step(
+                self.packed, self.vmap_state, imu_pack, pts_pack,
+                first=first, do_map=not defer_map)
+            if use_vio:
+                # Split mode: the VIO half reads the map as the LIO half
+                # left it (without this frame's insert when that is
+                # deferred).
+                self.packed, vdiag, n_it, self.pool = self._vio_half(
+                    self.packed, img_dev, pg, fid, self.vmap_state)
+            if defer_map:
+                # The insert queues after the pose-producing work; the
+                # next frame's match sees the updated map.
+                self.vmap_state = self._insert(self.vmap_state, pg)
+        if n_it is not None:
+            # a device int from the device loops, read at finalize
+            self.photo_iterations = self.photo_iterations + n_it
         self.map_inited = True
         if pg is not None:  # every frame but the map-building first
             if self.cfg.publish.pub_effect_point_en:
@@ -735,14 +866,14 @@ class LIVOPipeline:
                 # The downsampled posterior world points this frame gave
                 # the map, coloured from the frame image when VIO ran
                 # (XYZRGB), else geometry only (the reference's XYZI path).
-                colors, keep = None, pg.valid
+                colors, visible = None, pg.valid
                 if use_vio:
-                    colors, keep = vio_mod.colorize_points(
+                    colors, visible = vio_mod.colorize_points(
                         img_dev.to(torch.float32), pg.pts_w, pg.valid,
                         self.state, self.cam, self.Rci, self.Pci,
                         blind=self.cfg.publish.blind_rgb_points)
                 self._cloud_chunks.append(
-                    (pg.pts_w, colors, keep, self.packed[9:12]))
+                    (pg.pts_w, colors, visible, keep(self.packed[9:12])))
         # Map sliding: each check consumes the position snapshot taken at
         # the previous check (a 10-frame decision lag, harmless because
         # crossing sliding_thresh takes many frames).
@@ -763,15 +894,17 @@ class LIVOPipeline:
         self._ship_images()
         self._trim_imu()
         if self.cfg.evo.pose_output_en:
-            self.trace_post.append((t_ev, self.packed))
+            self.trace_post.append((t_ev, keep(self.packed)))
         t_end = time.perf_counter()
         self.frame_id += 1
         # Keep device tensors; converting here would sync every frame.
-        self.trajectory.append((t_ev, self.packed))
+        self.trajectory.append((t_ev, keep(self.packed)))
         row = dict(t=t_ev, t_wall=t_end, lio_s=t_end - t_frame0, vio_s=0.0,
                    host_ms=(t_end - t_frame0) * 1e3, diag=diag)
         if vdiag is not None:
             row["vdiag"] = vdiag  # merges into diag[2:5] at finalize
+        if stage_ms is not None:
+            row.update(stage_ms)
         self.log.add(**row)
         if progress and self.frame_id % 10 == 0:
             print(f"[{self.slam_mode}] frame {self.frame_id} t={t_ev:.2f} "
@@ -781,6 +914,8 @@ class LIVOPipeline:
     def _finalize_host_views(self):
         """All device->host conversions of the trajectory and diagnostics
         in one transfer each, at the end of the run."""
+        if isinstance(self.photo_iterations, torch.Tensor):
+            self.photo_iterations = int(self.photo_iterations)
         new_idx = [i for i, row in enumerate(self.trajectory) if len(row) == 2]
         if not new_idx:
             return
@@ -851,15 +986,21 @@ class LIVOPipeline:
 
     def print_stage_table(self, last_n: Optional[int] = None) -> str:
         """Render the per-frame table of FrameLog rows in the reference's
-        box style (LIVMapper.cpp:465-476). Without per-stage timing
-        (tpu.stage_timing, ROADMAP.md Queue 1 item 17) it shows the host
-        split rows. Returns the string (and prints it)."""
-        from ..utils.timing import StageTable
+        box style (LIVMapper.cpp:465-476 / vio.cpp:1851-1868). The stage
+        columns (propagate .. vio) and their Total render when
+        tpu.stage_timing filled them; otherwise the host rows. Returns
+        the string (and prints it)."""
+        from ..utils.timing import STAGES, StageTable
 
         tab = StageTable("LIVO per-frame stages")
+        has_stages = any("lio_ms" in r for r in self.log.rows)
+        # host_ms contains the timed stages: summing both would count
+        # the frame twice
+        keys = (tuple(f"{n}_ms" for n in STAGES) if has_stages
+                else ("host_ms", "dev_wait_ms"))
         for r in self.log.rows:
             got = False
-            for k in ("host_ms", "dev_wait_ms"):
+            for k in keys:
                 if k in r:
                     tab.mark(k.replace("_ms", ""), r[k] * 1e-3)
                     got = True

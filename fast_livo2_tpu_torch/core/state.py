@@ -84,6 +84,13 @@ def boxminus(a: NavState, b: NavState) -> torch.Tensor:
     ])
 
 
+def select(c: torch.Tensor, a, b):
+    """`a` where the 0-d bool `c` holds, else `b`, field by field, for
+    NamedTuples of tensors (NavState, PlaneMatch): the masked update of
+    the device loops (core/lio.py, core/vio.py)."""
+    return type(a)(*(torch.where(c, x, y) for x, y in zip(a, b)))
+
+
 def pack_state(s: NavState, cov: torch.Tensor) -> torch.Tensor:
     """State + covariance as ONE (PACKED_LEN,) vector — the JAX
     package's layout: rot(9) pos vel bias_g bias_a grav inv_expo cov."""

@@ -16,11 +16,15 @@ the JAX package:
   depth raster, selects and warps the reference patch, and gates
   outliers.
 - The coarse-to-fine photometric ESIKF runs per pyramid level. The JAX
-  `lax.while_loop` is a Python loop here that reads its stop flag once
-  per iteration, except after the last one (at most pyramid_levels x
-  (max_iterations - 1) host reads a frame, 16 at the defaults). Each
-  iteration is one fused kernel launch (ops/photo_iteration, TPU kernel
-  K2) where the JAX package's predicate holds, else the torch-op chain.
+  `lax.while_loop` is a Python loop here, in one of two forms over one
+  body: early exit (the split frame) reads its stop flag once per
+  iteration, except after the last one (at most pyramid_levels x
+  (max_iterations - 1) host reads a frame, 16 at the defaults); the
+  device loop (the fused and staged frames) runs every iteration with
+  each carried value updated under torch.where(active, new, old) and no
+  host read. Each iteration is one fused kernel launch
+  (ops/photo_iteration, TPU kernel K2) where the JAX package's predicate
+  holds, else the torch-op chain.
 - Map maintenance: grid-scatter argmax for new points, masked
   observation appends with min-score eviction, NCC re-scoring and normal
   refinement from the LIO plane map, all written with one scatter per
@@ -29,7 +33,10 @@ the JAX package:
 In place, where JAX donated: `ring_insert` writes the ring and the
 pool's valid/ref columns, and `generate_and_maintain` scatters the
 frame's rows into the pool tensors it is given; both return the same
-tensors. Every other function leaves its inputs untouched.
+tensors. Every other function leaves its inputs untouched. The frame id
+is a 0-d int32 tensor on the frame's device (a Python int is accepted
+and converted), as the JAX package passes it: a captured CUDA graph
+(core/frame_graph.py) reads it from a buffer instead of baking it in.
 
 Tie-breaks follow jnp.argmin/argmax, which return the first index, as
 torch.argmin/argmax document; the scatter-min/max of `_cell_argbest`
@@ -51,8 +58,9 @@ from ..models import camera as cam_mod
 from ..ops import image as img_ops
 from ..ops import photo_iteration as photo_mod
 from ..ops import so3
-from .state import DIM_STATE, NavState, boxminus, boxplus
-from .voxel_map import VoxelMap, VoxelMapConfig, quad6, query_plane, sym6
+from .state import DIM_STATE, NavState, boxminus, boxplus, select
+from .voxel_map import (VoxelMap, VoxelMapConfig, _const, quad6, query_plane,
+                        sym6)
 
 # point row layout (P, 19)
 _P_POS = slice(0, 3)
@@ -310,8 +318,8 @@ def _warp_homography(cam, ring, sel_obs, sel_point, Rcw, Pcw, cfg: VIOConfig):
     eye = torch.eye(3, dtype=pf.dtype, device=dev)
     H = R_cr @ (nd[:, None, None] * eye - t_inv[:, :, None] * norm_ref[:, None, :])
 
-    step_u = px_ref.new_tensor([4.0, 0.0])
-    step_v = px_ref.new_tensor([0.0, 4.0])
+    step_u = _const((4.0, 0.0), torch.float32, str(dev))
+    step_v = _const((0.0, 4.0), torch.float32, str(dev))
     f_du = cam_mod.cam2world(cam, px_ref + step_u)
     f_dv = cam_mod.cam2world(cam, px_ref + step_v)
     f_c = torch.einsum("mij,mj->mi", H, cam_mod.cam2world(cam, px_ref))
@@ -349,7 +357,8 @@ def _warp_homography(cam, ring, sel_obs, sel_point, Rcw, Pcw, cfg: VIOConfig):
 
     h_img, w_img = ring.imgs.shape[1], ring.imgs.shape[2]
     # All pyramid levels in one gather set.
-    lvl_sc = pf.new_tensor([float(1 << l) for l in range(cfg.pyramid_levels)])
+    lvl_sc = _const(tuple(float(1 << l) for l in range(cfg.pyramid_levels)),
+                    torch.float32, str(dev))
     sc = (lvl_sc[None, :, None, None]
           * torch.pow(2.0, search.to(torch.float32))[:, None, None, None])
     px_patch = offs[None, None, :, :] * sc  # (M, L, ps², 2)
@@ -498,17 +507,16 @@ def retrieve(pool: VisualPool, ring: FrameRing, img, depth_img, state: NavState,
     return submap, pool
 
 
-def _select_state(c, a: NavState, b: NavState) -> NavState:
-    return NavState(*(torch.where(c, x, y) for x, y in zip(a, b)))
-
-
 def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
-                       cam: cam_mod.Camera, Rci, Pci, cfg: VIOConfig):
+                       cam: cam_mod.Camera, Rci, Pci, cfg: VIOConfig,
+                       device_loop: bool = False):
     """Coarse-to-fine iterated photometric ESIKF
     (computeJacobianAndUpdateEKF + updateState, vio.cpp:784-802,
-    :1520-1688). Returns (state, cov, mean_error, iterations), the last
-    a host int: the iterations run, one ops/photo_iteration call each
-    where the fused path is taken."""
+    :1520-1688). Returns (state, cov, mean_error, iterations): the
+    iterations that took effect, a host int, or with `device_loop` (all
+    pyramid_levels x max_iterations iterations run, masked, with no host
+    read) a 0-d int32 device tensor. One ops/photo_iteration call an
+    iteration run where the fused path is taken."""
     f32 = cov_prop.dtype
     dev = cov_prop.device
     ps = cfg.patch_size
@@ -548,8 +556,8 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
                 submap.pos, ref, eff_lvl, submap.valid, ps)
         old_state = state
         last_error = torch.full((), _BIG, dtype=f32, device=dev)
-        it = 0
-        while it < cfg.max_iterations:
+        stop = torch.zeros((), dtype=torch.bool, device=dev)  # device loop
+        for it in range(cfg.max_iterations):
             Rcw, Pcw = camera_pose(state, Rci, Pci)
             tau = state.inv_expo
             if fused:
@@ -597,45 +605,63 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
 
             # Accept/rollback (:1648-1681): on improvement keep the
             # pre-update state and apply the solution; otherwise revert
-            # to the saved state and stop.
+            # to the saved state and stop. In the device loop an
+            # iteration after the stop changes nothing.
             accept = error <= last_error
             new_state = boxplus(state, sol)
-            old_state, state = (_select_state(accept, state, old_state),
-                                _select_state(accept, new_state, old_state))
+            if device_loop:
+                active = ~stop
+                back = select(active, old_state, state)
+                accept = active & accept
+            else:
+                back = old_state
+            old_state, state = (select(accept, state, old_state),
+                                select(accept, new_state, back))
             rot_add = torch.linalg.norm(sol[0:3])
             t_add = torch.linalg.norm(sol[3:6])
             converged = (rot_add * 57.3 < 0.001) & (t_add * 100.0 < 0.001)
             G_keep = torch.where(accept, G, G_keep)
             final_err = torch.where(accept, error, final_err)
             last_error = torch.where(accept, error, last_error)
-            it += 1
+            if device_loop:
+                iterations = iterations + active.to(torch.int32)
+                stop = stop | ~accept | converged
+                continue
             iterations += 1
             # The loop condition of the JAX while_loop, read on the host;
             # after the last iteration the count alone ends the level.
-            if it < cfg.max_iterations and bool(~accept | converged):
+            if it + 1 < cfg.max_iterations and bool(~accept | converged):
                 break
 
     cov = cov_prop - G_keep @ cov_prop
     return state, cov, final_err, iterations
 
 
-def _make_obs_row(px, Rcw, Pcw, expo, frame_slot: int, frame_id: int, mean,
-                  score, M):
-    """Full (M, 20) packed observation rows."""
+def _frame_index(x, device) -> torch.Tensor:
+    """A frame id or ring slot as a 0-d int32 tensor on `device` (the
+    pipeline passes tensors; a Python int is converted)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    return torch.tensor(int(x), dtype=torch.int32, device=device)
+
+
+def _make_obs_row(px, Rcw, Pcw, expo, frame_slot, frame_id, mean, score, M):
+    """Full (M, 20) packed observation rows; frame_slot and frame_id are
+    0-d int32 tensors."""
     f = dict(dtype=torch.float32, device=px.device)
     return torch.cat([
         torch.ones((M, 1), **f), px,
         Rcw.reshape(1, 9).expand(M, 9), Pcw.reshape(1, 3).expand(M, 3),
         expo.reshape(1, 1).expand(M, 1),
-        torch.full((M, 1), float(frame_slot), **f),
-        torch.full((M, 1), float(frame_id), **f),
+        frame_slot.to(torch.float32).reshape(1, 1).expand(M, 1),
+        frame_id.to(torch.float32).reshape(1, 1).expand(M, 1),
         mean[:, None], score[:, None],
     ], dim=-1)
 
 
 def _generate_rows(pool_alloc, img, pg_w, pg_normal, pg_var6, pg_valid,
                    cell_occupied, state: NavState, cam: cam_mod.Camera,
-                   Rci, Pci, frame_id: int, frame_slot: int, cfg: VIOConfig):
+                   Rci, Pci, frame_id, frame_slot, cfg: VIOConfig):
     """Row-level core of new-point generation (generateVisualMapPoints,
     vio.cpp:804-906): the best Shi-Tomasi candidate per empty grid cell.
     Returns (slot (M,) with P for dropped, point_rows, obs_rows,
@@ -701,7 +727,7 @@ def _generate_rows(pool_alloc, img, pg_w, pg_normal, pg_var6, pg_valid,
 
 def _update_obs_rows(point_rows, obs_rows, patches, submap: Submap, img,
                      state: NavState, cam: cam_mod.Camera, Rci, Pci,
-                     frame_id: int, frame_slot: int, cfg: VIOConfig):
+                     frame_id, frame_slot, cfg: VIOConfig):
     """Row-level core of the observation update (updateVisualMapPoints,
     vio.cpp:908-967) over pre-gathered (M, ...) pool rows. Returns new
     (point_rows, obs_rows, patches, update_flag (M,))."""
@@ -836,7 +862,7 @@ def generate_and_maintain(pool: VisualPool, vmap_state: VoxelMap,
                           map_cfg: VoxelMapConfig, submap: Submap, img,
                           pg_w, pg_normal, pg_var6, pg_valid,
                           state: NavState, cam: cam_mod.Camera, Rci, Pci,
-                          frame_id: int, frame_slot: int, cfg: VIOConfig):
+                          frame_id, frame_slot, cfg: VIOConfig):
     """New-point generation + observation update + reference refinement
     with one scatter per pool tensor, in place. Maintained rows that
     collide with a freshly allocated slot (the pool wrapping onto a
@@ -845,6 +871,8 @@ def generate_and_maintain(pool: VisualPool, vmap_state: VoxelMap,
     Returns (pool, update_flag (M,), n_added ())."""
     P = cfg.pool_capacity
     pidx = submap.point_idx
+    frame_id = _frame_index(frame_id, img.device)
+    frame_slot = _frame_index(frame_slot, img.device)
     point_m, obs_m, patch_m, add = _update_obs_rows(
         submap.point_rows, submap.obs_rows, submap.patch_rows, submap, img,
         state, cam, Rci, Pci, frame_id, frame_slot, cfg)
@@ -864,15 +892,18 @@ def generate_and_maintain(pool: VisualPool, vmap_state: VoxelMap,
     return pool, add, n_added
 
 
-def ring_insert(pool: VisualPool, ring: FrameRing, img, frame_id: int,
+def ring_insert(pool: VisualPool, ring: FrameRing, img, frame_id,
                 cfg: VIOConfig):
     """Write the frame into its ring slot and invalidate observations
-    that referenced the evicted frame, in place. Returns (pool, ring,
-    slot)."""
+    that referenced the evicted frame, in place. frame_id: a 0-d int32
+    tensor (or an int). Returns (pool, ring, slot), slot a 0-d int32
+    tensor computed on the device."""
     K = cfg.max_obs
+    frame_id = _frame_index(frame_id, img.device)
     slot = frame_id % cfg.frame_ring
-    ring.imgs[slot] = img
-    ring.ids[slot] = frame_id
+    at = slot.reshape(1).long()
+    ring.imgs.index_copy_(0, at, img[None].to(ring.imgs.dtype))
+    ring.ids.index_copy_(0, at, frame_id.reshape(1))
     obs_valid = pool.obs[:, :, _O_VALID] > 0.5
     evicted = ((pool.obs[:, :, _O_SLOT].to(torch.int32) == slot)
                & (pool.obs[:, :, _O_FID].to(torch.int32) != frame_id))
@@ -896,17 +927,21 @@ class VIOStepResult(NamedTuple):
     n_tracked: torch.Tensor
     n_added: torch.Tensor
     mean_error: torch.Tensor
-    photo_iterations: int  # host count of photometric iterations run
+    photo_iterations: object  # photometric iterations that took effect: a
+    # host int, or a 0-d int32 tensor from the device loop
 
 
 def vio_step(state_prop: NavState, cov_prop, pool: VisualPool, ring: FrameRing,
              vmap_state: VoxelMap, img, pg_w, pg_normal, pg_var, pg_valid,
-             frame_id: int, cam: cam_mod.Camera, Rci, Pci, cfg: VIOConfig,
-             map_cfg: VoxelMapConfig) -> VIOStepResult:
+             frame_id, cam: cam_mod.Camera, Rci, Pci, cfg: VIOConfig,
+             map_cfg: VoxelMapConfig, device_loop: bool = False
+             ) -> VIOStepResult:
     """One VIO frame (processFrame, vio.cpp:1786-1876): ring insert ->
     depth raster -> retrieval -> iterated photometric update -> new-point
     generation + observation update + reference refinement. pg_var:
-    (N, 3, 3) or (N, 6) sym6. The pool and ring are updated in place."""
+    (N, 3, 3) or (N, 6) sym6; frame_id a 0-d int32 tensor. The pool and
+    ring are updated in place. `device_loop`: the photometric update's
+    host-read-free form."""
     if cfg.inverse_composition_en or cfg.raycast_en:
         raise NotImplementedError(
             "vio.inverse_composition_en and vio.raycast_en are not ported "
@@ -921,7 +956,8 @@ def vio_step(state_prop: NavState, cov_prop, pool: VisualPool, ring: FrameRing,
                             Pci, cfg)
     n_tracked = torch.sum(submap.valid.to(torch.int32))
     state, cov, mean_err, iters = photometric_update(
-        state_prop, cov_prop, submap, img, cam, Rci, Pci, cfg)
+        state_prop, cov_prop, submap, img, cam, Rci, Pci, cfg,
+        device_loop=device_loop)
     pool, _, n_added = generate_and_maintain(
         pool, vmap_state, map_cfg, submap, img, pg_w, pg_normal, pg_var6,
         pg_valid, state, cam, Rci, Pci, frame_id, frame_slot, cfg)

@@ -119,12 +119,13 @@ def make_map(cfg: VoxelMapConfig, device="cuda") -> VoxelMap:
     )
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _const(values: tuple, dtype, device: str) -> torch.Tensor:
     """A small constant tensor, uploaded once per (values, device): a
     fresh torch.tensor(..., device="cuda") per call would be a blocking
     host-to-device copy, i.e. a host sync, on every map operation.
-    Callers never write to it."""
+    Callers never write to it, and it is never freed: a captured CUDA
+    graph (core/frame_graph.py) reads it by address."""
     return torch.tensor(values, dtype=dtype, device=device)
 
 

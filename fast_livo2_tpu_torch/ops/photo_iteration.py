@@ -102,10 +102,11 @@ def pack_params(Rcw, Pcw, tau, Jdphi_dR, Jdp_dR, fx, fy, cx, cy, dist,
     return row[None, :]
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def _camera_columns(values: tuple, device: str) -> torch.Tensor:
     """Columns 31:64 of the parameter row (the camera, the flags and the
-    zero padding) as one device tensor; callers never write to it."""
+    zero padding) as one device tensor; callers never write to it, and
+    it is never freed: a captured CUDA graph reads it by address."""
     return torch.tensor(values + (0.0,) * (PAR_W - 41), dtype=torch.float32,
                         device=device)
 

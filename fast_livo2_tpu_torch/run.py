@@ -19,8 +19,10 @@ written with --checkpoint holds the rest of the stream, so --resume with
 a sequence directory of only what came after it (or none of it: an empty
 sequence, plus the images in LIVO mode) continues the run.
 
-`--stage-table` (per-stage device timing, ROADMAP.md Queue 1 item 17) and
-`--online-refine` (the backend, item 15) are not ported yet and raise
+`--stage-table` sets tpu.stage_timing and prints the per-frame stage
+table (propagate / undistort / downsample / lio / map / vio, device time
+on the card) before the summary line. `--online-refine` (the backend,
+ROADMAP.md Queue 1 item 15) is not ported yet and raises
 NotImplementedError.
 """
 
@@ -58,7 +60,8 @@ def main(argv=None):
     ap.add_argument("--traces", action="store_true",
                     help="write mat_pre/mat_out state traces")
     ap.add_argument("--stage-table", action="store_true",
-                    help="per-stage device timing (not ported yet)")
+                    help="per-stage device timing (tpu.stage_timing): "
+                         "print the per-frame stage table at the end")
     ap.add_argument("--online-refine", action="store_true",
                     help="sliding-window backend (not ported yet)")
     ap.add_argument("--checkpoint", default=None,
@@ -69,9 +72,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
-    if args.stage_table:
-        raise NotImplementedError("--stage-table (tpu.stage_timing) is not "
-                                  "ported yet: ROADMAP.md Queue 1 item 17")
     if args.online_refine:
         raise NotImplementedError("--online-refine (keyframes and online "
                                   "refinement) is not ported yet: ROADMAP.md "
@@ -89,6 +89,8 @@ def main(argv=None):
         cfg.pcd_save.pcd_save_en = True
     if args.traces:
         cfg.evo.pose_output_en = True
+    if args.stage_table:
+        cfg.tpu.stage_timing = True
 
     seq = dataset.load_sequence(args.seq, cfg=cfg)
     pipe = LIVOPipeline(cfg, slam_mode=mode, device=args.device)
@@ -99,6 +101,8 @@ def main(argv=None):
     traj = pipe.process(seq, max_frames=args.max_frames,
                         progress=args.progress)
     wall = time.time() - t0
+    if args.stage_table:
+        pipe.print_stage_table(last_n=20)
 
     os.makedirs(args.out, exist_ok=True)
     export.write_tum(os.path.join(args.out, "trajectory.txt"), traj)

@@ -1,5 +1,6 @@
-"""Per-frame stage timing tables (the PyTorch port's own copy of
-`StageTable` from fast_livo2_tpu/utils/timing.py).
+"""Per-frame stage timing: `StageClock` times a frame's stages
+(tpu.stage_timing) and `StageTable` renders the tables (the PyTorch
+port's own copy of `StageTable` from fast_livo2_tpu/utils/timing.py).
 
 The reference prints per-frame ANSI box tables of stage wall-times
 (LIO: DownSample/ICP/updateVoxelMap, LIVMapper.cpp:465-476; VIO stage
@@ -11,9 +12,51 @@ jax.profiler, and `torch.profiler` takes their place where a trace is
 wanted (chip_smoke.py's profile phases).
 """
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+
+# The staged frame's stages, in order (the JAX package's
+# _run_frame_staged, fast_livo2_tpu/core/pipeline.py:561-598).
+STAGES = ("propagate", "undistort", "downsample", "lio", "map", "vio")
+
+
+class StageClock:
+    """Times consecutive stages of one frame. On a CUDA device each bound
+    is a CUDA event recorded on the current stream, and `read` waits for
+    the last one once and returns the device time between bounds: the
+    span of the stage's work on the device timeline, gaps while the
+    device waits for the host's launches included. On the CPU each bound
+    is a perf_counter reading (the ops run as they are called)."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._names: List[str] = []
+        self._bounds = [self._now()]
+
+    def _now(self):
+        if self._cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def lap(self, name: str):
+        """Close the stage `name` (it began at the previous bound)."""
+        self._names.append(name)
+        self._bounds.append(self._now())
+
+    def read(self) -> Dict[str, float]:
+        """{f"{name}_ms": milliseconds} of every closed stage."""
+        b = self._bounds
+        if self._cuda:
+            b[-1].synchronize()
+            ms = [b[i].elapsed_time(b[i + 1]) for i in range(len(b) - 1)]
+        else:
+            ms = [(b[i + 1] - b[i]) * 1e3 for i in range(len(b) - 1)]
+        return {f"{n}_ms": t for n, t in zip(self._names, ms)}
 
 
 class StageTable:

@@ -2,7 +2,8 @@
 tests/test_run_cli.py's scenario (config yaml -> npz sequence ->
 trajectory.txt + artifacts + JSON summary with ATE/drift), a run cut by
 --max-frames and finished with --resume (exactly the uninterrupted run's
-tail), the mode derivation, and the two options that are not ported."""
+tail), the mode derivation, the per-stage table (--stage-table) and the
+option that is not ported."""
 
 import json
 import os
@@ -93,9 +94,25 @@ def test_derive_mode():
     assert run.derive_mode(LIVOConfig()) == "livo"
 
 
-@pytest.mark.parametrize("flag,item", [("--stage-table", "item 17"),
-                                       ("--online-refine", "item 15")])
+@pytest.mark.parametrize("flag,item", [("--online-refine", "item 15")])
 def test_unported_options_raise(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         run.main(["--config", "unused.yaml", "--seq", str(tmp_path),
                   "--out", str(tmp_path), flag])
+
+
+def test_run_cli_stage_table(case, capsys):
+    """--stage-table sets tpu.stage_timing and prints the per-frame stage
+    table before the summary line."""
+    root, _, full = case
+    summary = run.main(["--config", str(root / "sensor.yaml"), "--seq",
+                        str(root / "seq"), "--out", str(root / "staged"),
+                        "--stage-table", "--device", "cpu"])
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(printed[-1]) == summary
+    assert summary["frames"] == full["frames"]
+    table = "\n".join(printed[:-1])
+    for name in ("propagate", "undistort", "downsample", "lio", "map",
+                 "Total"):
+        assert name in table, table
+    assert "vio" not in table  # ONLY_LIO: no VIO stage

@@ -7,6 +7,8 @@ a card and no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -452,3 +454,193 @@ def test_gather_rows_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         gather.gather_rows(table, idx[:100], group=64)
     assert gather.LAUNCHES == before
+
+
+def _small_livo(duration=1.6, **tpu):
+    """A small LIVO configuration and its rendered sequence (the LIVO
+    test above: 1.6 s), with the tpu.* options given."""
+    from fast_livo2_tpu_torch.io import synthetic
+    from fast_livo2_tpu_torch.models import camera
+    from fast_livo2_tpu_torch.utils.config import CameraConfig, LIVOConfig
+
+    cfg = LIVOConfig()
+    cfg.camera = CameraConfig(cam_model="Pinhole", cam_width=320,
+                              cam_height=256, cam_fx=200.0, cam_fy=200.0,
+                              cam_cx=160.0, cam_cy=128.0)
+    cfg.extrin_calib.Rcl = list(synthetic.R_CI_FORWARD.reshape(-1))
+    cfg.tpu.max_points_per_scan = 8192
+    cfg.tpu.max_points_down = 4096
+    cfg.tpu.hash_capacity_log2 = 15
+    cfg.tpu.vis_point_capacity = 8192
+    cfg.tpu.frame_ring = 32
+    cfg.lio.max_layer = 1
+    cfg.preprocess.filter_size_surf = 0.15
+    for k, v in tpu.items():
+        setattr(cfg.tpu, k, v)
+    seq = synthetic.make_sequence(
+        duration=duration, lidar_hz=10.0, img_hz=10.0, imu_hz=200.0,
+        cam=camera.make_camera(cfg.camera), seed=0, n_lines=12,
+        n_per_line=500, render=True, fov_deg=360.0)
+    return cfg, seq
+
+
+def _state_tensors(pipe):
+    """The state a fused frame reads or writes, in the order of the
+    graph's static buffers."""
+    return [pipe.packed, *pipe.vmap_state, *pipe.noise, *pipe.pool,
+            *pipe.ring]
+
+
+@pytest.mark.cuda
+def test_fused_replays_equal_eager_device_loop_frames():
+    """Two replays of the captured LIVO frame give bit for bit what two
+    eager device-loop frames (`_fused_frame` called directly) give from the
+    same state and inputs. Deterministic algorithms are on, so that the
+    float scatter-adds of the downsample and the map insert sum in one
+    order in both."""
+    _need_card()
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    cfg, seq = _small_livo(fused_frame=True)
+    was = torch.are_deterministic_algorithms_enabled()
+    # cuBLAS's deterministic workspace setting, which the mode asks for
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        graph = LIVOPipeline(cfg, "livo", device="cuda")
+        eager = LIVOPipeline(cfg, "livo", device="cuda")
+        eager._frame_graphs = None  # the same frame function, no graph
+        for p in (graph, eager):
+            p.push_sequence(seq)
+            # the IMU init, the map-building frame, the warm-up + capture
+            while p.frame_id < 2:
+                p.poll(max_frames=1, flush=True)
+        assert len(graph._frame_graphs.graphs) == 1
+        for a, b in zip(_state_tensors(graph), _state_tensors(eager)):
+            assert torch.equal(a, b)
+        for _ in range(2):
+            assert graph.poll(max_frames=1, flush=True) == 1
+            assert eager.poll(max_frames=1, flush=True) == 1
+            for a, b in zip(_state_tensors(graph), _state_tensors(eager)):
+                assert torch.equal(a, b)
+        assert graph.photo_iterations.item() == eager.photo_iterations.item()
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.cuda
+def test_fused_replays_through_a_map_slide_on_the_q16_wire():
+    """Every frame of a fused run equal, bit for bit, to the eager
+    device-loop frames, with the int16 points wire (its own static
+    input shape) and map sliding on: the slide replaces the map between
+    frames, and the next replay must read it from the graph's static
+    buffers, which keep their addresses."""
+    _need_card()
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    # 2.6 s: the slide check at frame 20 reads the position of frame 10
+    cfg, seq = _small_livo(2.6, fused_frame=True, wire_q16=True)
+    cfg.local_map.map_sliding_en = True
+    cfg.local_map.sliding_thresh = 0.05
+    cfg.local_map.half_map_size = 10
+    was = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        graph = LIVOPipeline(cfg, "livo", device="cuda")
+        eager = LIVOPipeline(cfg, "livo", device="cuda")
+        eager._frame_graphs = None
+        for p in (graph, eager):
+            p.push_sequence(seq)
+        static = None
+        while graph._img_queue:
+            n = graph.poll(max_frames=1, flush=True)
+            assert eager.poll(max_frames=1, flush=True) == n
+            for a, b in zip(_state_tensors(graph), _state_tensors(eager)):
+                assert torch.equal(a, b)
+            if not graph._frame_graphs.graphs:
+                continue
+            buffers = [t.data_ptr()
+                       for t in graph._frame_graphs.static_tensors()]
+            assert static is None or buffers == static
+            static = buffers
+            ptrs = [t.data_ptr() for t in _state_tensors(graph)]
+            if (graph.frame_id - 1) % 10:  # no slide after this replay
+                assert ptrs == static
+            else:  # a slide may have replaced the map: the next replay
+                assert ptrs[0] == static[0]  # copies it into the buffers
+        assert graph.frame_id > 20 and np.any(graph._last_slide_pos != 0)
+        assert len(graph._frame_graphs.graphs) == 1
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.cuda
+def test_fused_run_keeps_distinct_outputs():
+    """A replay overwrites its outputs and the state is written back in
+    place: the trajectory, the state traces, the cloud chunks and the
+    diagnostics of a 5-frame fused run are each their own tensors with
+    their own values."""
+    _need_card()
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    cfg, seq = _small_livo(fused_frame=True)
+    cfg.pcd_save.pcd_save_en = True
+    cfg.evo.pose_output_en = True
+    cfg.publish.pub_effect_point_en = True
+    pipe = LIVOPipeline(cfg, "livo", device="cuda")
+    pipe.push_sequence(seq)
+    while len(pipe.trajectory) < 5:
+        assert pipe.poll(max_frames=1, flush=True) == 1
+    assert len(pipe._frame_graphs.graphs) == 1
+    kept = {
+        "trajectory": [v for _, v in pipe.trajectory],
+        "trace_pre": [v for _, v in pipe.trace_pre],
+        "trace_post": [v for _, v in pipe.trace_post],
+        "cloud": [c[0] for c in pipe._cloud_chunks],
+        "cloud_keep": [c[2] for c in pipe._cloud_chunks],
+        "cloud_sensor": [c[3] for c in pipe._cloud_chunks],
+        "effect": [pg.pts_w for _, pg in pipe._effect_chunks],
+        "diag": [r["diag"] for r in pipe.log.rows],
+        "vdiag": [r["vdiag"] for r in pipe.log.rows if "vdiag" in r],
+    }
+    state = {t.data_ptr() for t in _state_tensors(pipe)}
+    for name, ts in kept.items():
+        assert len(ts) >= 3, name
+        ptrs = [t.data_ptr() for t in ts]
+        assert len(set(ptrs)) == len(ptrs), f"{name}: shared storage"
+        assert not state & set(ptrs), f"{name}: aliases the static state"
+        if name != "cloud_keep":
+            for a, b in zip(ts, ts[1:]):
+                assert not torch.equal(a, b), f"{name}: equal consecutive values"
+    # the trajectory's last entry is the state the last replay wrote
+    assert torch.equal(kept["trajectory"][-1], pipe.packed)
+
+
+@pytest.mark.cuda
+def test_fused_capture_with_a_host_read_raises():
+    """A host read inside the frame cannot be captured: the pipeline
+    raises, naming the line, and does not run the frame eagerly
+    instead. (Last in the file: a failed capture may leave the device's
+    capture state unusable for the rest of the process.)"""
+    _need_card()
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    cfg, seq = _small_livo(fused_frame=True)
+    pipe = LIVOPipeline(cfg, "only_lio", device="cuda")
+    pipe.push_sequence(seq)
+    while pipe.frame_id < 1:  # the IMU init and the map-building frame
+        pipe.poll(max_frames=1, flush=True)
+    stage_lio = pipe._stage_lio
+
+    def with_host_read(*args, **kwargs):
+        out = stage_lio(*args, **kwargs)
+        float(out[1][0])  # a device-to-host read
+        return out
+
+    pipe._stage_lio = with_host_read
+    frames = len(pipe.trajectory)
+    with pytest.raises(RuntimeError, match="capture.*float\\(out"):
+        pipe.poll(max_frames=1, flush=True)
+    assert len(pipe.trajectory) == frames
+    assert not pipe._frame_graphs.graphs

@@ -142,3 +142,31 @@ def test_lio_update_matches_jax_on_carried_map(carried, opts):
                                atol=1e-4)
     np.testing.assert_allclose(float(tres.mean_residual),
                                float(jres.mean_residual), rtol=1e-3)
+
+
+@pytest.mark.parametrize("opts", [
+    dict(),
+    dict(plane_info_cap=40),
+    dict(fresh_every_iter=True),
+    dict(rematch_fresh=False, max_iterations=3),
+], ids=["default", "info_cap", "fresh_every_iter", "no_rematch"])
+def test_lio_device_loop_equals_early_exit(carried, opts):
+    """The device-loop form (every iteration run, each carried value
+    masked, no host read; the fused and staged frames) gives the
+    early-exit form's result bit for bit on the same inputs."""
+    c = carried
+    t_state, t_cov = unpack_state(c["t_packed"])
+    args = (t_state, t_cov, c["tm"], torch.from_numpy(c["pts_body"]),
+            torch.from_numpy(c["valid"]),
+            torch.from_numpy(np.array(jstate.so3.exp(
+                jnp.asarray([0.01, -0.02, 0.015], jnp.float32)))),
+            torch.from_numpy(np.array([0.04, -0.02, 0.01], np.float32)),
+            tvm.VoxelMapConfig(**MAP_KW))
+    early = tlio.lio_update(*args, **opts)
+    loop = tlio.lio_update(*args, **opts, device_loop=True)
+    for name, a, b in zip(NavState._fields, early.state, loop.state):
+        assert torch.equal(a, b), name
+    for name in ("cov", "pts_w", "var_w", "n_effective", "mean_residual"):
+        assert torch.equal(getattr(early, name), getattr(loop, name)), name
+    for name, a, b in zip(early.match._fields, early.match, loop.match):
+        assert torch.equal(a, b), name

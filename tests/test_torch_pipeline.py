@@ -122,13 +122,11 @@ def test_unported_modes_and_flags_raise():
         cfg = small_config()  # the outputs are ported
         setattr(getattr(cfg, section), flag, True)
         LIVOPipeline(cfg, slam_mode="only_lio", device="cpu")
-    setters = [lambda c: setattr(c.tpu, "stage_timing", True),
-               lambda c: setattr(c.tpu, "fused_frame", True)]
-    for set_flag in setters:
-        cfg = small_config()
-        set_flag(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LIVOPipeline(cfg, slam_mode="only_lio", device="cpu")
+    for flag in ("stage_timing", "fused_frame"):  # ported: every mode
+        for mode in LIVOPipeline.SLAM_MODES:
+            cfg = small_config()
+            setattr(cfg.tpu, flag, True)
+            LIVOPipeline(cfg, slam_mode=mode, device="cpu")
     pipe = LIVOPipeline(small_config(), slam_mode="only_lio", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pipe.enable_online_refine()

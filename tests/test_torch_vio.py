@@ -335,3 +335,26 @@ def test_livo_pipeline_matches_jax(jax_run):
     dp = np.linalg.norm(_positions(traj_f) - _positions(traj), axis=-1)
     assert dp.max() < 1e-3, dp
     assert pipe_f.photo_iterations > 0
+
+
+@pytest.mark.parametrize("variant", [
+    dict(), dict(true_pyramid=True), dict(pallas_photo=True)],
+    ids=["raw_strided", "true_pyramid", "fused_kernel_plain"])
+def test_photometric_device_loop_equals_early_exit(jax_frame, variant):
+    """The device-loop form (all levels x max_iterations iterations,
+    each carried value masked, no host read; the fused and staged
+    frames) gives the early-exit form's state, covariance and error bit
+    for bit from the same submap, and counts the same iterations."""
+    T, _, J, _ = jax_frame
+    cfg = T["cfg"]._replace(**variant)
+    args = (T["state"], T["cov"], _submap_to_torch(J["sub"]), T["img"],
+            T["cam"], T["Rci"], T["Pci"], cfg)
+    es, ec, ee, e_it = tvio.photometric_update(*args)
+    ls, lc, le, l_it = tvio.photometric_update(*args, device_loop=True)
+    for name, a, b in zip(tstate.NavState._fields, es, ls):
+        assert torch.equal(a, b), name
+    assert torch.equal(ec, lc) and torch.equal(ee, le)
+    assert isinstance(l_it, torch.Tensor) and int(l_it) == e_it
+    if not cfg.true_pyramid:  # (there every level runs all its iterations)
+        # levels stopped early: the masked iterations were exercised
+        assert e_it < cfg.pyramid_levels * cfg.max_iterations
