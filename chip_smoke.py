@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths (ONLY_LIO, full LIVO and the user's
 run through the CLI, with its outputs and checkpoint/resume, in split,
-fused and staged frames) on one NVIDIA GPU and hold every hand-written
+fused and staged frames; the VIO extras; the sliding-window backend and
+multi-stream replay) on one NVIDIA GPU and hold every hand-written
 kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -84,9 +85,41 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     pipeline that has already captured its graph, and run
                     on from its static buffers: held to the golden
                     tolerances against the uninterrupted fused run.
+  22. vio_extras    the LIVO sequence with vio.raycast_en, then with
+                    vio.inverse_composition_en, each split then fused:
+                    ATE, tracked points, raycast candidates a frame,
+                    frame times; fused vs split at the golden
+                    tolerances, 0 syncs in a replay, K1 once a frame, K2
+                    20 a fused VIO frame with raycast and 0 with IC;
+  23. backend_photo the online backend with photometric factors on the
+                    fused LIVO sequence (a keyframe every 2 frames,
+                    8-keyframe windows every 4): factors captured,
+                    windows refined, ATE, K2 as in the fused LIVO phase;
+  24. batch         MultiStreamReplay, fused LIVO, 1 then 4 streams of
+                    the sequence on the card: each stream against the
+                    single one at the golden tolerances, aggregate
+                    frames/s beside the single stream's, placement on a
+                    missing card raising;
+  25. resume_backend an ONLY_LIO fused run with the backend saved half-
+                    way (its window drained) and loaded: keyframes and
+                    refined poses bit for bit, the tail at the golden
+                    tolerances;
+  26. backend       the first 30 s of bench.py's long-indoor sequence
+                    (generated in a child process from the start of the
+                    run, cached under build/), ONLY_LIO fused, without
+                    and with the online backend in turns (plain,
+                    backend, backend, plain), then with the submit gate
+                    at 0.05: the refiner's submits, completed windows,
+                    submit host ms, window device ms on its stream,
+                    graph capture s and pool MB; refined keyframes' ATE
+                    beside the filter's; frame ms with and without; the
+                    feedback run's ATE within max(1.3 x, + 0.02 m) of the
+                    run without (tests/test_long_run.py:120); 0 syncs in
+                    replayed frames but the refiner's captures.
 
 Then the `kernels` line (K1's and K2's launches on the split LIVO path
-and, as `launches_fused`, on the fused one), the card's name and power
+and, as `launches_fused`, on the fused one; `launches_phases`, those of
+phases 22-26), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failed
 phase exits non-zero before that line; there is no CPU fallback.
 Imports nothing of JAX. Every
@@ -249,6 +282,23 @@ def timings(fn, event=True):
             "device_ms_by_kernel": {k[:90]: v for k, v in by_name.items()}}
 
 
+def one_kernel_timings(fn, kernel, what, tries=5):
+    """timings(fn) where every call of fn launches one device kernel, whose
+    name holds `kernel`. The profiler can drop a few kernel events of a
+    cycle (the parent's kernels too, on an idle host), which only lowers
+    the count: a profile that sees fewer than one a call is taken again,
+    up to `tries` profiles; one that sees more, or another kernel, fails."""
+    for n in range(1, tries + 1):
+        t = timings(fn)
+        per_call, names = t["device_kernels_per_call"], list(t["device_ms_by_kernel"])
+        check(per_call <= 1 and all(kernel in k for k in names),
+              f"{what}: device kernels a call {per_call}: {names}")
+        if per_call == 1:
+            return {**t, "profiles": n}
+    check(False, f"{what}: device kernels a call {per_call} in each of "
+                 f"{tries} profiles: {names}")
+
+
 def bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of the two least times."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -327,15 +377,8 @@ def k1_case(arrays, steps):
     check(bool(torch.all(err <= ATOL_K1 + RTOL_K1 * want.abs())),
           f"cov_scan kernel disagrees with its plain version ({steps} live "
           f"steps): max_abs_err {max_abs_err}")
-    # The profiler can drop a few kernel events of a cycle (for the parent's
-    # kernel too): up to three profiles, the first that sees every call.
-    for _ in range(3):
-        t = timings(lambda: cov_scan.propagate_cov(F, Q, P0))
-        if t["device_kernels_per_call"] == 1:
-            break
-    check(t["device_kernels_per_call"] == 1,
-          f"cov_scan ({steps} live steps): {t['device_kernels_per_call']} "
-          f"device kernels a call")
+    t = one_kernel_timings(lambda: cov_scan.propagate_cov(F, Q, P0),
+                           "cov_scan_kernel", f"cov_scan ({steps} live steps)")
     plain_ms = time_cuda(lambda: cov_scan.propagate_cov_plain(F, Q, P0))
     # Least time for the same work: each input read once (the kernel reads
     # the padding steps too, to find them), the output written once; two
@@ -453,11 +496,8 @@ def phase_kernel_photo(seq):
         check(torch.equal(k2_flat(photo.photo_iteration(*args)), first),
               f"K2 not bitwise repeatable at call {k + 1}")
         photo.photo_iteration(*others[k % 2])
-    t = timings(lambda: photo.photo_iteration(*args))
-    check(t["device_kernels_per_call"] == 1
-          and all("photo_iteration_kernel" in k for k in t["device_ms_by_kernel"]),
-          f"K2: device kernels a call {t['device_kernels_per_call']}: "
-          f"{list(t['device_ms_by_kernel'])}")
+    t = one_kernel_timings(lambda: photo.photo_iteration(*args),
+                           "photo_iteration_kernel", "K2")
     plain_ms = time_cuda(lambda: photo.photo_iteration_plain(*args), calls=20)
     # Least time: the distinct image taps the windows read, the point
     # inputs and the parameter row read once, the 64-float output written
@@ -573,11 +613,14 @@ def _events(pipe):
     return list(pipe._scan_events)
 
 
-def drive(pipe):
+def drive(pipe, after=None):
     """poll(max_frames=1) until the queue is empty, each frame timed on
-    its own with its synchronizing CUDA calls counted. Returns (frame_ms,
-    syncs per frame)."""
-    frame_ms, syncs = [], []
+    its own with its synchronizing CUDA calls counted. A frame ends when
+    the frame's stream has run it (the pose is out): the backend's
+    refiner works on its own stream and is not waited for. Returns
+    (frame_ms, syncs per frame); with `after`, also after(pipe) of each
+    frame."""
+    frame_ms, syncs, seen = [], [], []
     while _events(pipe):
         t0 = time.perf_counter()
         # Every synchronizing CUDA call inside the frame (a device-to-host
@@ -589,24 +632,42 @@ def drive(pipe):
                 n = pipe.poll(max_frames=1, flush=True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
         if n:
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             syncs.append(sum("synchronizing CUDA operation" in str(w.message)
                              for w in caught))
-    return frame_ms, syncs
+            if after is not None:
+                seen.append(after(pipe))
+    return (frame_ms, syncs, seen) if after is not None else (frame_ms, syncs)
 
 
-def run_sequence(seq, mode, **tpu):
-    """The full-width sequence on "cuda" in `mode` with the tpu.* options
-    given, driven frame by frame (`drive`), the kernels' launch counts
-    set to 0 just before and read just after. Returns (pipeline, the
-    queued event times, frame ms, syncs a frame, launches)."""
-    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+def reset_launches():
     from fast_livo2_tpu_torch.ops import cov_scan, gather
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
+    cov_scan.LAUNCHES = photo.LAUNCHES = gather.LAUNCHES = 0
+
+
+def read_launches():
+    from fast_livo2_tpu_torch.ops import cov_scan, gather
+    from fast_livo2_tpu_torch.ops import photo_iteration as photo
+
+    return {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES,
+            "gather_rows": gather.LAUNCHES}
+
+
+def run_sequence(seq, mode, vio=None, **tpu):
+    """The full-width sequence on "cuda" in `mode` with the vio.* and
+    tpu.* options given, driven frame by frame (`drive`), the kernels'
+    launch counts set to 0 just before and read just after. Returns
+    (pipeline, the queued event times, frame ms, syncs a frame,
+    launches)."""
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
     cfg = full_width_config()
+    for k, v in (vio or {}).items():
+        setattr(cfg.vio, k, v)
     for k, v in tpu.items():
         setattr(cfg.tpu, k, v)
     pipe = LIVOPipeline(cfg, mode, device="cuda")
@@ -614,10 +675,9 @@ def run_sequence(seq, mode, **tpu):
     events = _events(pipe)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cov_scan.LAUNCHES = photo.LAUNCHES = gather.LAUNCHES = 0
+    reset_launches()
     frame_ms, syncs = drive(pipe)
-    launches = {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES,
-                "gather_rows": gather.LAUNCHES}
+    launches = read_launches()
     pipe._finalize_host_views()
     return pipe, events, frame_ms, syncs, launches
 
@@ -1275,6 +1335,450 @@ def phase_resume_fused(seq, frames):
     free_device_memory()
 
 
+def phase_vio_extras(seq):
+    """The full-width LIVO sequence with vio.raycast_en, then with
+    vio.inverse_composition_en, each split then fused: ATE, tracked
+    points, raycast candidates a frame (counted in the split run's
+    raycast_recover calls), frame times; fused against split at the
+    golden tolerances, 0 host syncs in a replayed frame, K1 once a frame,
+    K2 pyramid levels x iterations (20) a fused VIO frame with raycast
+    and never with the IC update (tensor ops in both packages). The four
+    runs use torch's deterministic algorithms, so that fused against
+    split compares the two frame forms and not the order of the float
+    scatter-adds, which alone parts two split runs by 3-4e-3 m over the
+    58 frames (stage_timing's spread); their frame times are those of
+    that mode. Returns {flag: the fused run's launches}."""
+    from fast_livo2_tpu_torch.core import vio as vio_mod
+
+    # cuBLAS's deterministic workspace setting, which the mode asks for
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _vio_extras(seq, vio_mod)
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _vio_extras(seq, vio_mod):
+    cfg = full_width_config()
+    per_frame = cfg.vio.patch_pyrimid_level * cfg.vio.max_iterations
+    out, fused_launches = {"phase": "vio_extras"}, {}
+    for flag in ("raycast_en", "inverse_composition_en"):
+        runs = {}
+        for fused in (False, True):
+            found = []
+            recover = vio_mod.raycast_recover
+
+            def spy(*a, **k):
+                res = recover(*a, **k)
+                found.append(torch.sum(res[2]))
+                return res
+
+            if not fused:  # (a graph would record one buffer)
+                vio_mod.raycast_recover = spy
+            try:
+                pipe, _, ms, syncs, launches = run_sequence(
+                    seq, "livo", vio={flag: True}, fused_frame=fused)
+            finally:
+                vio_mod.raycast_recover = recover
+            traj = pipe.trajectory
+            frames = len(traj)
+            ate = synthetic_ate(traj, seq)
+            tracked = float(np.mean([r["n_tracked"] for r in pipe.log.rows[3:]]))
+            check(ate < ATE_GATE_M, f"{flag} fused={fused}: ATE {ate} m")
+            check(tracked > TRACKED_GATE, f"{flag}: mean n_tracked {tracked}")
+            check(launches["cov_scan"] == frames,
+                  f"{flag}: cov_scan launched {launches['cov_scan']} times "
+                  f"in {frames} frames")
+            k2 = launches["photo_iteration"]
+            if flag == "inverse_composition_en":
+                check(k2 == 0, f"IC: photo_iteration launched {k2} times")
+            elif fused:
+                check(k2 == per_frame * (frames - 1),
+                      f"raycast fused: photo_iteration launched {k2} times "
+                      f"in {frames - 1} VIO frames")
+            else:
+                check(k2 == pipe.photo_iterations > 0,
+                      f"raycast split: {k2} K2 launches, "
+                      f"{pipe.photo_iterations} iterations")
+            run = {"frames": frames, "ate_rmse_m": ate, "mean_n_tracked": tracked,
+                   "median_frame_ms": statistics.median(ms[2:]),
+                   "p90_frame_ms": float(np.percentile(ms[2:], 90)),
+                   "host_syncs_per_frame_max": max(syncs[2:]),
+                   "launches": launches}
+            if fused:
+                g = pipe._frame_graphs.summary()
+                check(max(syncs[2:]) == 0,
+                      f"{flag}: host syncs in replayed frames {syncs[2:]}")
+                check(g["graphs"] == 1 and g["keys"][0][2]
+                      == (flag == "raycast_en"), f"{flag}: graphs {g}")
+                run.update(graph_keys=g["keys"], capture_seconds=g["capture_seconds"],
+                           pool_bytes=g["pool_bytes"])
+                fused_launches[flag] = launches
+            elif flag == "raycast_en":
+                n = [int(x) for x in found]
+                check(len(n) == frames - 1 and sum(n) > 0,
+                      f"raycast: {len(n)} recoveries, {sum(n)} candidates")
+                run["raycast_candidates_per_frame"] = float(np.mean(n))
+                run["raycast_candidates_max"] = max(n)
+            runs["fused" if fused else "split"] = (run, traj)
+            del pipe
+            free_device_memory()
+        dp, dR = traj_diff(runs["fused"][1], runs["split"][1])
+        check(dp <= POS_TOL_M and dR <= ROT_TOL,
+              f"{flag}: fused vs split {dp} m, {dR}")
+        out[flag] = {"split": runs["split"][0], "fused": runs["fused"][0],
+                     "fused_vs_split_pos_m": dp, "fused_vs_split_rot": dR}
+    out.update(pos_tol_m=POS_TOL_M, rot_tol=ROT_TOL, deterministic=True,
+               photo_iteration_launches_per_fused_vio_frame=per_frame)
+    emit(out)
+    return fused_launches
+
+
+LONG_INDOOR_S = 30.0  # of bench.py's 75 s long-indoor sequence
+
+
+def make_long_indoor(path):
+    """The first LONG_INDOOR_S seconds of bench.py's long-indoor sequence
+    (bench.py:372-387: the multi-room + corridor scene, the 74 s waypoint
+    loop, its noise and biases) at full scan width, 24 x 1000 points,
+    without images (the backend phase runs ONLY_LIO), saved as an npz
+    sequence directory at `path`."""
+    from fast_livo2_tpu_torch.io import dataset, synthetic
+
+    seq = synthetic.make_sequence(
+        duration=LONG_INDOOR_S, lidar_hz=10.0, imu_hz=200.0, seed=31,
+        n_lines=24, n_per_line=1000, render=False, fov_deg=360.0,
+        planes=synthetic.long_indoor_scene(),
+        traj=synthetic.WaypointTrajectory(
+            synthetic.long_indoor_waypoints(loops=1), duration=74.0),
+        max_range=45.0, gyr_noise=2e-3, acc_noise=2e-2, range_noise=0.02,
+        bias_g=np.array([0.002, -0.0015, 0.001]),
+        bias_a=np.array([0.05, -0.03, 0.08]), lidar_dropout=0.05,
+        lidar_outlier_frac=0.005)
+    dataset.save_sequence(path, seq)
+
+
+def start_long_indoor():
+    """Generate the long-indoor sequence in a child process, at the
+    lowest CPU priority, while the pipeline phases use the card;
+    `wait_long_indoor` joins it."""
+    path = os.path.join(REPO, "build", "smoke_long_indoor")
+    shutil.rmtree(path, ignore_errors=True)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--make-long-indoor", path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, path, time.perf_counter()
+
+
+def wait_long_indoor(started):
+    from fast_livo2_tpu_torch.io import dataset
+
+    proc, path, t0 = started
+    t_wait = time.perf_counter()
+    out, err = proc.communicate(timeout=600)
+    check(proc.returncode == 0, f"long-indoor generation failed:\n{err[-2000:]}")
+    seq = dataset.load_sequence(path)
+    emit({"phase": "long_indoor_sequence", "seconds": LONG_INDOOR_S,
+          "scans": len(seq.scans), "generated_in_s": time.perf_counter() - t0,
+          "waited_s": time.perf_counter() - t_wait})
+    return seq
+
+
+def _refiner_graphs(pipe):
+    return pipe._refiner.summary()["graphs"] if pipe._refiner else 0
+
+
+def run_backend(seq, mode, refine=None, vio=None, **tpu):
+    """One fused run of `seq` on the card with the backend's
+    enable_online_refine(**refine) (None: without it), driven frame by
+    frame, the launch counts set to 0 just before and read just after.
+    Returns (pipeline, frame ms, syncs a frame, refiner graphs after each
+    frame, launches)."""
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    cfg = full_width_config()
+    cfg.tpu.fused_frame = True
+    for k, v in (vio or {}).items():
+        setattr(cfg.vio, k, v)
+    for k, v in tpu.items():
+        setattr(cfg.tpu, k, v)
+    pipe = LIVOPipeline(cfg, mode, device="cuda")
+    if refine is not None:
+        pipe.enable_online_refine(**refine)
+    pipe.push_sequence(seq)
+    torch.cuda.synchronize()
+    reset_launches()
+    ms, syncs, graphs = drive(pipe, after=_refiner_graphs)
+    launches = read_launches()
+    pipe._finalize_host_views()
+    return pipe, ms, syncs, graphs, launches
+
+
+def replay_syncs(syncs, graphs):
+    """Host syncs of the replayed frames (frame 0 builds the map, frame 1
+    captures the frame graph) that captured no refiner graph (torch's
+    capture synchronizes the device once)."""
+    return [n for i, n in enumerate(syncs)
+            if i >= 2 and graphs[i] == graphs[i - 1]]
+
+
+def refiner_numbers(pipe):
+    """The refiner's numbers of one run: submits, completed windows,
+    refined keyframes, its submits' host ms (the capturing ones apart),
+    its windows' device ms on its stream, its graphs' capture s and pool
+    MB."""
+    r = pipe._refiner
+    g = r.summary()
+    n_cap = g["graphs"]
+    return {"submits": pipe.refine_submits, "windows_completed": len(r.device_ms),
+            "refined_keyframes": len(pipe.refined_keyframes),
+            "keyframes": len(pipe._keyframes),
+            "deltas_applied": len(pipe._refine_deltas),
+            "submit_host_ms_capturing": r.submit_ms[:n_cap],
+            "submit_host_ms_replay_median": (statistics.median(r.submit_ms[n_cap:])
+                                             if r.submit_ms[n_cap:] else None),
+            "submit_host_ms_replay_max": max(r.submit_ms[n_cap:], default=None),
+            "window_device_ms_warm_up": r.device_ms[:n_cap],
+            "window_device_ms_replay_median": (statistics.median(r.device_ms[n_cap:])
+                                               if r.device_ms[n_cap:] else None),
+            "refiner_graphs": n_cap, "refiner_variants": g["variants"],
+            "refiner_capture_s": g["capture_seconds"],
+            "refiner_pool_mb": [b / 2 ** 20 for b in g["pool_bytes"]]}
+
+
+BACKEND = dict(keyframe_every=5, window=16, stride=8, outer_iters=2,
+               gn_iters=2)
+
+
+def phase_backend(lseq):
+    """The online backend on the long-indoor cut, ONLY_LIO, fused frames:
+    without the backend and with enable_online_refine(**BACKEND) (IMU
+    links on) in turns (plain, backend, backend, plain), then with the
+    submit gate at 0.05 (bench.py's). Reports the refiner's numbers, the
+    refined keyframes' ATE beside the filter's at the same stamps, the
+    front end's frame ms with and without it, and holds the feedback
+    run's ATE to tests/test_long_run.py:120's max(1.3 x, + 0.02 m) of the
+    run without it; 0 host syncs in every replayed frame that captured no
+    refiner graph (so in every replayed submit), one a keyframe with the
+    gate (its plane-conditioning read)."""
+    from fast_livo2_tpu_torch.io import synthetic
+
+    runs = []
+    for refine in (None, BACKEND, BACKEND, None):
+        pipe, ms, syncs, graphs, launches = run_backend(lseq, "only_lio",
+                                                        refine)
+        traj = pipe.trajectory
+        run = {"backend": refine is not None, "frames": len(traj),
+               "ate_rmse_m": synthetic_ate(traj, lseq),
+               "median_frame_ms": statistics.median(ms[2:]),
+               "p90_frame_ms": float(np.percentile(ms[2:], 90)),
+               "p99_frame_ms": float(np.percentile(ms[2:], 99)),
+               "max_frame_ms": max(ms[2:]),
+               "replayed_frame_syncs_max": max(replay_syncs(syncs, graphs)),
+               "launches": launches, "traj": traj}
+        check(launches["cov_scan"] == len(traj),
+              f"cov_scan launched {launches['cov_scan']} times in "
+              f"{len(traj)} frames")
+        check(run["replayed_frame_syncs_max"] == 0,
+              f"host syncs in replayed frames: {replay_syncs(syncs, graphs)}")
+        if refine is not None:
+            run.update(refiner_numbers(pipe))
+            refined = pipe.refined_keyframe_trajectory()
+            run["refined"] = refined
+            check(run["windows_completed"] == pipe.refine_submits >= 2,
+                  f"{run['windows_completed']} windows completed of "
+                  f"{pipe.refine_submits} submitted")
+            check(all(np.isfinite(p).all() for _, _, p in refined),
+                  "non-finite refined keyframe")
+        runs.append(run)
+        del pipe
+        free_device_memory()
+    plain, fb = runs[0], runs[1]
+    ate_plain, ate_fb = plain["ate_rmse_m"], fb["ate_rmse_m"]
+    check(ate_fb <= max(1.3 * ate_plain, ate_plain + 0.02),
+          f"feedback ATE {ate_fb} m against {ate_plain} m without the backend")
+    kf_ts = {t for t, _, _ in fb["refined"]}
+    ate_kf_ref = synthetic.ate_rmse([(t, p) for t, _, p in fb["refined"]],
+                                    lseq.gt)
+    ate_kf_filter = synthetic.ate_rmse(
+        [(t, p) for t, _, p in plain["traj"] if t in kf_ts], lseq.gt)
+    pipe, ms, syncs, graphs, _ = run_backend(lseq, "only_lio",
+                                             dict(BACKEND, gate=0.05))
+    gated = {"submits": pipe.refine_submits, "skips": pipe.refine_gate_skips,
+             "keyframes": len(pipe._keyframes),
+             "ate_rmse_m": synthetic_ate(pipe.trajectory, lseq),
+             "median_frame_ms": statistics.median(ms[2:]),
+             "min_plane_cond": float(min(pipe._kf_conds)),
+             "replayed_frame_syncs_max": max(replay_syncs(syncs, graphs))}
+    check(pipe.refine_submits + pipe.refine_gate_skips > 0,
+          "the gated run never reached a window")
+    check(gated["replayed_frame_syncs_max"] <= 1,
+          "gated run: more than the keyframe's one read in a replayed frame: "
+          f"{replay_syncs(syncs, graphs)}")
+    del pipe
+    free_device_memory()
+    strip = ("traj", "refined")
+    emit({"phase": "backend", "sequence_s": LONG_INDOOR_S, "config": BACKEND,
+          "turns": [{k: v for k, v in r.items() if k not in strip}
+                    for r in runs],
+          "turns_median_frame_ms": {"order": ["plain", "backend", "backend",
+                                              "plain"],
+                                    "median": [r["median_frame_ms"] for r in runs]},
+          "ate_plain_m": ate_plain, "ate_feedback_m": ate_fb,
+          "feedback_gate_m": max(1.3 * ate_plain, ate_plain + 0.02),
+          "refined_keyframe_ate_m": ate_kf_ref,
+          "filter_ate_at_keyframes_m": ate_kf_filter,
+          "gated_0.05": gated})
+    return fb["launches"]
+
+
+def phase_backend_photo(seq):
+    """The online backend with photometric factors on the full-width LIVO
+    sequence, fused: enable_online_refine(photo=True, keyframe_every=2,
+    window=8, stride=4). Photo factors captured (keyframes and their
+    valid points), windows refined, ATE, K2 as in the fused LIVO phase
+    (20 a VIO frame: the capture and the window's photometric terms run
+    no K2), 0 syncs in replayed frames."""
+    cfg = full_width_config()
+    per_frame = cfg.vio.patch_pyrimid_level * cfg.vio.max_iterations
+    refine = dict(photo=True, keyframe_every=2, window=8, stride=4,
+                  outer_iters=2, gn_iters=2)
+    pipe, ms, syncs, graphs, launches = run_backend(seq, "livo", refine)
+    frames = len(pipe.trajectory)
+    ate = synthetic_ate(pipe.trajectory, seq)
+    caps = [kf[3] for kf in pipe._keyframes]
+    valid = [int(c[4].sum()) for c in caps if c is not None]
+    out = {"phase": "backend_photo", "config": refine, "frames": frames,
+           "ate_rmse_m": ate, "keyframes_with_photo": len(valid),
+           "photo_points_per_keyframe": float(np.mean(valid)) if valid else 0.0,
+           "median_frame_ms": statistics.median(ms[2:]),
+           "replayed_frame_syncs_max": max(replay_syncs(syncs, graphs)),
+           "launches": launches, **refiner_numbers(pipe)}
+    check(ate < ATE_GATE_M, f"backend_photo: ATE {ate} m")
+    check(len(valid) == len(caps) >= refine["window"] and min(valid) > 0,
+          f"photo captures: {valid} of {len(caps)} keyframes")
+    check(out["windows_completed"] >= 2 and [True, True] in out["refiner_variants"],
+          f"photo windows: {out['windows_completed']}, {out['refiner_variants']}")
+    check(launches["photo_iteration"] == per_frame * (frames - 1),
+          f"backend_photo: K2 launched {launches['photo_iteration']} times "
+          f"in {frames - 1} VIO frames")
+    check(out["replayed_frame_syncs_max"] == 0,
+          f"host syncs in replayed frames: {replay_syncs(syncs, graphs)}")
+    emit(out)
+    del pipe
+    free_device_memory()
+    return launches
+
+
+def phase_batch(seq, B=4):
+    """MultiStreamReplay on the card, fused LIVO: one stream, then B
+    streams of the same sequence (each its own pipeline and captured
+    graph): every stream against the single one at the golden
+    tolerances, aggregate frames/s beside the single stream's, peak
+    memory; placement on a card the machine lacks raises."""
+    from fast_livo2_tpu_torch.parallel.batch import MultiStreamReplay
+
+    cfg = full_width_config()
+    cfg.tpu.fused_frame = True
+    res = {}
+    for b in (1, B):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        rep = MultiStreamReplay(cfg, b, "livo", devices=["cuda:0"])
+        trajs = rep.process([seq] * b)
+        res[b] = dict(trajs=trajs, fps=rep.n_frames / rep.wall_s,
+                      n_frames=rep.n_frames, wall_s=rep.wall_s,
+                      launches=read_launches(),
+                      graphs=[len(p._frame_graphs.graphs) for p in rep.pipes],
+                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del rep
+        free_device_memory()
+    single = res[1]["trajs"][0]
+    diffs = [traj_diff(t, single) for t in res[B]["trajs"]]
+    check(all(dp <= POS_TOL_M and dR <= ROT_TOL for dp, dR in diffs),
+          f"streams vs the single stream: {diffs}")
+    check(res[B]["graphs"] == [1] * B, f"graphs per stream {res[B]['graphs']}")
+    try:
+        MultiStreamReplay(cfg, 2, "livo",
+                          devices=["cuda:0", f"cuda:{torch.cuda.device_count()}"])
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "placement on a missing card did not raise")
+    emit({"phase": "batch", "streams": B, "frames_per_stream": len(single),
+          "single_frames_per_s": res[1]["fps"],
+          "aggregate_frames_per_s": res[B]["fps"],
+          "aggregate_over_single": res[B]["fps"] / res[1]["fps"],
+          "timed_frames": {1: res[1]["n_frames"], B: res[B]["n_frames"]},
+          "wall_s": {1: res[1]["wall_s"], B: res[B]["wall_s"]},
+          "peak_mem_gib": {1: res[1]["peak_gib"], B: res[B]["peak_gib"]},
+          "max_pos_diff_m": max(d[0] for d in diffs),
+          "max_rot_diff": max(d[1] for d in diffs),
+          "launches": res[B]["launches"], "placement_raises": raised})
+    return res[B]["launches"]
+
+
+def phase_resume_backend(seq):
+    """An ONLY_LIO fused run with the online backend (keyframes every 2
+    frames, 4-keyframe windows) saved half-way, its window drained first,
+    and loaded into a fresh pipeline: keyframes (time, state, scan) and
+    refined poses equal, bit for bit; the resumed tail held to the golden
+    tolerances against the uninterrupted run."""
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.io import checkpoint
+
+    cfg = full_width_config()
+    cfg.tpu.fused_frame = True
+    refine = dict(keyframe_every=2, window=4, stride=2, outer_iters=1,
+                  gn_iters=1)
+    a = LIVOPipeline(cfg, "only_lio", device="cuda")
+    a.enable_online_refine(**refine)
+    a.push_sequence(seq)
+    half = 25  # of the 6 s sequence's 58 frames
+    check(a.poll(max_frames=half, flush=True) == half, "first half")
+    a._consume_refine(force=True)
+    ck = os.path.join(REPO, "build", "smoke_resume_backend.npz")
+    checkpoint.save(ck, a)
+    kfs = [(t, p.cpu(), sc.cpu()) for t, p, sc, _, _ in a._keyframes]
+    refined = dict(a.refined_keyframes)
+    a.poll(flush=True)
+    a._finalize_host_views()
+    tail = a.trajectory[half:]
+    del a
+    free_device_memory()
+    b = LIVOPipeline(cfg, "only_lio", device="cuda")
+    b.enable_online_refine(**refine)
+    checkpoint.load(ck, b)
+    same = (len(b._keyframes) == len(kfs) and all(
+        t0 == kb[0] and torch.equal(p0, kb[1].cpu())
+        and torch.equal(s0, kb[2].cpu())
+        for (t0, p0, s0), kb in zip(kfs, b._keyframes)))
+    same_ref = (set(refined) == set(b.refined_keyframes) and all(
+        np.array_equal(refined[t][0], b.refined_keyframes[t][0])
+        and np.array_equal(refined[t][1], b.refined_keyframes[t][1])
+        for t in refined))
+    check(same and same_ref and len(kfs) >= 4 and refined,
+          f"loaded keyframes equal: {same}, refined poses equal: {same_ref}")
+    b.poll(flush=True)
+    b._finalize_host_views()
+    check([t for t, _, _ in b.trajectory] == [t for t, _, _ in tail],
+          f"resumed run cut {len(b.trajectory)} frames, {len(tail)} expected")
+    dp, dR = traj_diff(b.trajectory, tail)
+    check(dp <= POS_TOL_M and dR <= ROT_TOL,
+          f"resumed backend tail vs uninterrupted run: {dp} m, {dR}")
+    emit({"phase": "resume_backend", "frames_before": half,
+          "frames_after": len(b.trajectory), "keyframes_loaded": len(kfs),
+          "refined_loaded": len(refined),
+          "refined_after": len(b.refined_keyframes),
+          "max_pos_diff_m": dp, "max_rot_diff": dR, "pos_tol_m": POS_TOL_M,
+          "rot_tol": ROT_TOL})
+    del b
+    free_device_memory()
+
+
 def smooth_image(H, W, seed=0):
     """A smooth DN-scale (H, W) float32 image (a doubly integrated noise
     field scaled to 0-255)."""
@@ -1352,12 +1856,17 @@ def main(argv):
         emit({"package": os.path.dirname(fast_livo2_tpu_torch.__file__),
               "nvidia_smi": nvidia_smi(), **kernel_times()})
         return 0
+    if mode == "--make-long-indoor":
+        os.nice(19)  # behind the card's phases on the host's cores
+        make_long_indoor(argv[1])
+        return 0
     if mode == "--turns":
         return run_turns(os.path.abspath(argv[1]))
     if mode is not None:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    long_indoor = None
     try:
         smi = phase_device()
         phase_build()
@@ -1368,6 +1877,9 @@ def main(argv):
               "images": len(seq.images), "seconds": time.perf_counter() - t0})
         k2, frame = phase_kernel_photo(seq)
         phase_side_stream(frame)
+        # (after the kernel phases: a busy host makes the profiler drop
+        # kernel events, and those phases count them)
+        long_indoor = start_long_indoor()
         traj, _ = phase_pipeline(seq, "only_lio")
         phase_parity(seq, traj, "only_lio", PARITY_FRAMES)
         phase_profile(seq, "only_lio")
@@ -1386,6 +1898,13 @@ def main(argv):
             free_device_memory()
         phase_stage_timing(seq)
         phase_resume_fused(seq, len(traj))
+        extras = phase_vio_extras(seq)
+        phases = {"vio_extras_raycast_fused": extras["raycast_en"],
+                  "vio_extras_ic_fused": extras["inverse_composition_en"],
+                  "backend_photo": phase_backend_photo(seq),
+                  "batch": phase_batch(seq)}
+        phase_resume_backend(seq)
+        phases["backend"] = phase_backend(wait_long_indoor(long_indoor))
         # the fused LIVO path's run (tpu.fused_frame: the kernels launch
         # from its graph's replays), and K1's and K2's ms a replayed frame
         for k, name in ((k1, "cov_scan"), (k2, "photo_iteration")):
@@ -1396,6 +1915,10 @@ def main(argv):
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if long_indoor is not None and long_indoor[0].poll() is None:
+            long_indoor[0].kill()
+            long_indoor[0].communicate()
     # launches: the LIVO main path's run, which goes through K1 and K2;
     # no path runs K3 (0), its own phase's count beside it
     k1["launches"] = launches["cov_scan"]
@@ -1404,6 +1927,10 @@ def main(argv):
     k3["launches_fused"] = fused["livo"]["gather_rows"]
     k3["launches"] = launches["gather_rows"]
     k3["phase_launches"] = k3_phase_launches
+    # the launches of each of this slice's phases (their fused runs)
+    for k, name in ((k1, "cov_scan"), (k2, "photo_iteration"),
+                    (k3, "gather_rows")):
+        k["launches_phases"] = {ph: n[name] for ph, n in phases.items()}
     emit({"kernels": [k1, k2, k3]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -30,9 +30,9 @@ What a graph needs, and how this module provides it:
   `_fused_frame` updates the pool rows and the ring in place and ends
   with a `copy_` of the new packed state, map and pool cursor into them
   (`copy_back_bytes` a frame). Anything that replaces a state tensor
-  between frames (map sliding, a checkpoint load) is copied into the
-  static buffer before the next replay, and the pipeline's attributes
-  are bound back to the buffers (`_bind`).
+  between frames (map sliding, a checkpoint load, the backend's pose
+  delta) is copied into the static buffer before the next replay, and
+  the pipeline's attributes are bound back to the buffers (`_bind`).
 - Everything else a graph reads by address stays alive as long as the
   graph: the state and inputs above are held here, as is K2's scratch
   for the capture stream (ops/photo_iteration.py replaces it when a
@@ -49,10 +49,13 @@ What a graph needs, and how this module provides it:
   handles and workspaces of the stream. The graph is then captured on
   the same stream and replayed from the next frame on.
 - Graph keys. A graph is captured once per static shape of the frame:
-  (use_vio, defer_map). The scan points are always emitted, and the
-  wire format and the IMU packet's shape are fixed per pipeline, so a
-  LIVO run captures one graph (a LIVO frame without an image would be a
-  second). `summary()` reports the graphs, their capture seconds and the
+  (use_vio, defer_map, raycast). With vio.raycast_en a VIO frame appends
+  one raycast candidate per grid cell to the scan's rows inside the
+  graph (8192 + 396 rows at full width), read through the pipeline's ray
+  table, which lives as long as the pipeline. The scan points are always
+  emitted, and the wire format and the IMU packet's shape are fixed per
+  pipeline, so a LIVO run captures one graph (a LIVO frame without an
+  image would be a second). `summary()` reports the graphs, their capture seconds and the
   memory their pools reserved.
 - Library calls. torch.linalg.inv_ex (the 19x19 inverses of both
   filters) runs cuSOLVER's getrf and cuBLAS's batched triangular solves
@@ -112,7 +115,7 @@ def _capture_error(e: BaseException) -> str:
 
 class FrameGraphs:
     """The captured fused frames of one LIVOPipeline on a CUDA device, one
-    graph per key (use_vio, defer_map)."""
+    graph per key (use_vio, defer_map, raycast)."""
 
     def __init__(self, pipe):
         self.pipe = pipe
@@ -170,7 +173,8 @@ class FrameGraphs:
         self._bind()
         imu_s, pts_s, img_s, fid_s = self._load_inputs(
             (imu_pack, pts_pack, img if use_vio else None, fid))
-        key = (use_vio, defer_map)
+        key = (use_vio, defer_map,
+               use_vio and self.pipe._ray_table is not None)
         g = self.graphs.get(key)
         if g is not None:
             g.graph.replay()

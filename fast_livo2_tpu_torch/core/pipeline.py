@@ -45,9 +45,24 @@ post-update states (`save_state_traces`); `uav.imu_rate_odom` fills
 dumps the frame ring with tracked points drawn on it; `export_colmap`
 writes a COLMAP text model. io/checkpoint.py saves and resumes the run.
 
-Not in this slice (the constructor raises NotImplementedError naming the
-ROADMAP.md item): raycast recovery and the inverse-compositional update,
-keyframes and online refinement.
+The VIO extras run in every frame form: `vio.raycast_en` (the ray
+table is built once here, and each VIO frame appends the recovered
+candidates to the scan's rows) and `vio.inverse_composition_en` (the
+6-dof inverse-compositional update).
+
+The sliding-window backend (parallel/ba.py), as in the JAX package:
+with `keyframe_every` set, every keyframe_every-th frame keeps a
+keyframe (its time, a copy of the packed posterior state, the frame's
+undistorted posterior scan in the body frame, strided to `kf_points`
+rows, and with `refine_photo` its photometric factors), and the raw IMU
+samples are kept for the links between keyframes. `refine_trajectory`
+refines the last keyframes after the run; `enable_online_refine` submits
+a window every `stride` keyframes to an OnlineRefiner on its own CUDA
+stream, feeds the newest keyframe's pose delta back into the filter
+(small-delta gated), and collects `refined_keyframes`. The keyframe block
+runs after the frame (after the replay, for a fused frame) and reads
+nothing on the host, except one scalar a keyframe (its plane
+conditioning) when the submit gate `refine_gate` is on.
 """
 
 import bisect
@@ -70,13 +85,9 @@ from . import vio as vio_mod
 from . import voxel_map as vmap_mod
 from .state import init_cov, init_state, pack_state, unpack_state
 
-# (config predicate, flag name, ROADMAP.md item that ports it), for flags
-# that only the VIO half reads (LIVO mode)
-_UNPORTED_VIO_FLAGS = (
-    (lambda c: c.vio.raycast_en, "vio.raycast_en", "Queue 1 item 12"),
-    (lambda c: c.vio.inverse_composition_en, "vio.inverse_composition_en",
-     "Queue 1 item 12"),
-)
+# backend feedback gate: a refined delta larger than this is dropped
+# (the backend polishes drift, it must never yank the filter)
+_MAX_DELTA_DEG, _MAX_DELTA_M = 2.0, 0.5
 
 
 class ScanPoints(NamedTuple):
@@ -130,11 +141,6 @@ class LIVOPipeline:
             raise ValueError(
                 f"slam_mode {slam_mode!r} not in {self.SLAM_MODES} "
                 "('only_lio' = no camera; 'only_lo' = no camera, no IMU)")
-        flags = _UNPORTED_VIO_FLAGS if slam_mode == "livo" else ()
-        for pred, name, item in flags:
-            if pred(cfg):
-                raise NotImplementedError(
-                    f"config flag {name} is not ported yet: ROADMAP.md {item}")
         self.cfg = cfg
         self.slam_mode = slam_mode
         self.device = torch.device(device)
@@ -198,6 +204,9 @@ class LIVOPipeline:
             self.ring = vio_mod.make_ring(self.vio_cfg, self.cam, self.device)
         else:
             self.pool = self.ring = None
+        self._ray_table = (
+            vio_mod.make_ray_table(self.cam, self.vio_cfg, device=self.device)
+            if slam_mode == "livo" and cfg.vio.raycast_en else None)
 
         self.noise: Optional[imu_mod.ImuNoise] = None
         self.imu_inited = False
@@ -242,6 +251,29 @@ class LIVOPipeline:
         self.mesh_seconds: Optional[dict] = None  # save_mesh's split
         self._last_slide_pos = np.zeros(3)
         self._pos_snapshot = None  # position copy consumed at the next check
+        # The sliding-window backend (parallel/ba.py). A keyframe is
+        # (t, packed state copy, scan4 (kf_points, 4) [body xyz | valid],
+        # photo factors or None, the state's host copy in flight).
+        self.keyframe_every = 0  # frames between keyframes; 0 = off
+        self.kf_points = 4096  # body-scan rows kept per keyframe
+        self.kf_use_raw = False  # keep the raw (distorted) packet instead
+        # (the distortion-sensitivity comparison of the JAX package)
+        self._keyframes: List[tuple] = []
+        self._imu_hist: List[tuple] = []  # (stamps, gyr, acc) for the links
+        self.online_refine = False
+        self.refine_window_size = 16
+        self.refine_stride = 8
+        self.refine_feedback = True
+        self.refine_imu_links = True
+        self.refine_photo = False  # capture photometric factors (LIVO)
+        self.refine_gate = 0.0  # see enable_online_refine(gate=)
+        self._refiner = None
+        self._last_refine_k = 0
+        self._kf_conds: List[float] = []  # per-keyframe plane_cond
+        self.refine_submits = 0  # windows dispatched
+        self.refine_gate_skips = 0  # windows skipped as healthy
+        self.refined_keyframes = {}  # t -> (R, p), newest refinement wins
+        self._refine_deltas: List[tuple] = []  # (t_applied, R_d, p_d)
         # tpu.fused_frame on the card: one captured CUDA graph a frame
         # (on the CPU the same frame function runs eagerly)
         self._frame_graphs = None
@@ -377,7 +409,7 @@ class LIVOPipeline:
             state, cov, self.pool, self.ring, vmap_state,
             img.to(torch.float32), pg.pts_w, pg.normal, pg.var_w6, pg.valid,
             fid, self.cam, self.Rci, self.Pci, self.vio_cfg, self.map_cfg,
-            device_loop=device_loop)
+            ray_table=self._ray_table, device_loop=device_loop)
         vdiag = torch.stack([vres.n_tracked.to(torch.float32),
                              vres.n_added.to(torch.float32), vres.mean_error])
         return (pack_state(vres.state, vres.cov), vdiag,
@@ -607,6 +639,10 @@ class LIVOPipeline:
         self._imu_t = np.concatenate([self._imu_t, t])
         self._imu_gyr = np.concatenate([self._imu_gyr, g])
         self._imu_acc = np.concatenate([self._imu_acc, a])
+        if self.keyframe_every:
+            # the raw history the backend's IMU links preintegrate; it
+            # survives _trim_imu, bounded there to the keyframe horizon
+            self._imu_hist.append((t, g, a))
 
     def push_scan(self, t_begin: float, pts: np.ndarray, offs: np.ndarray):
         """Append one decoded scan (LIVMapper.cpp:703-766), with the
@@ -743,6 +779,14 @@ class LIVOPipeline:
             self._imu_t = self._imu_t[i0:]
             self._imu_gyr = self._imu_gyr[i0:]
             self._imu_acc = self._imu_acc[i0:]
+        # Bound the link history to the refine-window horizon (whole
+        # chunks older than the oldest keyframe a next window could use).
+        if self._imu_hist and self.keyframe_every:
+            kfs = self._keyframes[-self.refine_window_size:]
+            lo = (kfs[0][0] if kfs else self.last_update_time) - 2.0
+            while (len(self._imu_hist) > 1 and len(self._imu_hist[0][0])
+                   and self._imu_hist[0][0][-1] < lo):
+                self._imu_hist.pop(0)
 
     def process(self, seq, max_frames: Optional[int] = None,
                 progress: bool = False):
@@ -895,10 +939,14 @@ class LIVOPipeline:
         self._trim_imu()
         if self.cfg.evo.pose_output_en:
             self.trace_post.append((t_ev, keep(self.packed)))
-        t_end = time.perf_counter()
+        is_kf = (bool(self.keyframe_every) and not first
+                 and self.frame_id % self.keyframe_every == 0)
         self.frame_id += 1
         # Keep device tensors; converting here would sync every frame.
         self.trajectory.append((t_ev, keep(self.packed)))
+        if is_kf:
+            self._add_keyframe(t_ev, pts_pack, pg, img_dev, diag)
+        t_end = time.perf_counter()
         row = dict(t=t_ev, t_wall=t_end, lio_s=t_end - t_frame0, vio_s=0.0,
                    host_ms=(t_end - t_frame0) * 1e3, diag=diag)
         if vdiag is not None:
@@ -913,7 +961,10 @@ class LIVOPipeline:
 
     def _finalize_host_views(self):
         """All device->host conversions of the trajectory and diagnostics
-        in one transfer each, at the end of the run."""
+        in one transfer each, at the end of the run (after draining the
+        refinement in flight)."""
+        if self.online_refine:
+            self._consume_refine(force=True)
         if isinstance(self.photo_iterations, torch.Tensor):
             self.photo_iterations = int(self.photo_iterations)
         new_idx = [i for i, row in enumerate(self.trajectory) if len(row) == 2]
@@ -1159,7 +1210,274 @@ class LIVOPipeline:
                 vio_mod.pool_point_valid(self.pool)].cpu().numpy()
         export_mod.write_colmap(out_dir, self.cam, frames, points3d=pts3d)
 
-    def enable_online_refine(self, *args, **kwargs):
-        raise NotImplementedError(
-            "keyframes and online refinement are not ported yet: "
-            "ROADMAP.md Queue 1 item 15")
+    # ---------- the sliding-window backend (parallel/ba.py) ----------
+
+    def _add_keyframe(self, t_ev: float, pts_pack, pg: ScanPoints, img_dev,
+                      diag):
+        """Keep this frame as a keyframe: a copy of the posterior state
+        (a fused frame's state is a graph buffer the next replay
+        overwrites), the body-frame scan and, with refine_photo on a VIO
+        frame, its photometric factors; start the state's host copy (the
+        IMU links read its biases); then, with online refinement, collect
+        a finished window and submit the next one."""
+        packed = self.packed.clone()
+        scan4 = (self._kf_scan_raw(pts_pack) if self.kf_use_raw
+                 else self._kf_scan(packed, pg))
+        photo = None
+        if self.refine_photo and img_dev is not None:
+            photo = self._capture_photo(packed, img_dev, pg)
+        if self.refine_gate > 0.0:
+            # the one host read a keyframe: the degeneracy signal the
+            # submit gate reads (diag[5] = plane conditioning)
+            self._kf_conds.append(float(diag[5]))
+        # (the host copy: the state's 25 floats, not its covariance)
+        self._keyframes.append((t_ev, packed, scan4, photo,
+                                _host_copy(packed[0:25])))
+        if self.online_refine and self._refiner is not None:
+            self._consume_refine()
+            k = len(self._keyframes)
+            if (k >= self.refine_window_size
+                    and k - self._last_refine_k >= self.refine_stride
+                    and self._submit_refine()):
+                self._last_refine_k = k
+
+    def _kf_strided(self, n: int) -> slice:
+        """`kf_points` rows of n, evenly strided (spatially fair)."""
+        k = min(self.kf_points, n)
+        step = max(1, n // k)
+        return slice(0, k * step, step)
+
+    def _kf_scan(self, packed, pg: ScanPoints):
+        """(kf_points, 4) [body xyz | valid] of the frame's undistorted
+        posterior scan: R^T (p_w - p) of the strided rows."""
+        state, _ = unpack_state(packed)
+        sl = self._kf_strided(pg.pts_w.shape[0])
+        body = (pg.pts_w[sl] - state.pos) @ state.rot
+        return torch.cat([body, pg.valid[sl, None].to(torch.float32)], dim=-1)
+
+    def _kf_scan_raw(self, pts_pack):
+        """The raw (distorted) packet's strided rows, as _kf_scan's."""
+        pts, _, valid = self._unpack_pts(pts_pack)
+        sl = self._kf_strided(pts.shape[0])
+        return torch.cat([pts[sl], valid[sl, None].to(torch.float32)], dim=-1)
+
+    def _capture_photo(self, packed, img_dev, pg: ScanPoints):
+        """A keyframe's photometric factors (LIVO): the frame's retrieval
+        re-run at the posterior state (vio.capture_photo_factors).
+        Returns (img u8, tau, pos, target, valid, scale) on the device."""
+        state, _ = unpack_state(packed)
+        pos, tgt, val, scale = vio_mod.capture_photo_factors(
+            self.pool, self.ring, img_dev.to(torch.float32), state,
+            pg.pts_w, pg.valid, self.cam, self.Rci, self.Pci, self.vio_cfg)
+        return (img_dev, state.inv_expo, pos, tgt, val, scale)
+
+    def enable_online_refine(self, keyframe_every: int = 10,
+                             window: int = 16, stride: int = 8,
+                             outer_iters: int = 2, gn_iters: int = 2,
+                             feedback: bool = True, mesh=None,
+                             photo: bool = False, gate: float = 0.0):
+        """Turn on the online sliding-window backend: a keyframe every
+        `keyframe_every` frames, and every `stride` keyframes an
+        asynchronous refinement of the last `window` keyframes
+        (parallel/ba.OnlineRefiner, on its own CUDA stream on the card).
+        When one completes, the refined poses go to `refined_keyframes`
+        and, with `feedback`, the newest keyframe's pose delta is applied
+        to the live filter state if it is small (< 2 deg, < 0.5 m).
+        `photo`: photometric pose factors from each keyframe (LIVO).
+        gate: 0 = always on; > 0 = submit a window only when some
+        keyframe's plane conditioning (the smallest eigenvalue of the
+        normalized matched-normal second moment, FrameLog `plane_cond`,
+        in [0, 1/3]) fell below it. `mesh=` (keyframe sharding) is
+        ROADMAP.md Queue 1 item 16 and raises NotImplementedError."""
+        from ..parallel import ba
+
+        self._refiner = ba.OnlineRefiner(
+            self.map_cfg, outer_iters=outer_iters, gn_iters=gn_iters,
+            dept_err=self.cfg.lio.dept_err, beam_err=self.cfg.lio.beam_err,
+            mesh=mesh, cam=self.cam if photo else None, Rci=self.Rci,
+            Pci=self.Pci, patch_size=self.vio_cfg.patch_size,
+            photo_weight=1.0 / self.cfg.vio.img_point_cov)
+        self.keyframe_every = keyframe_every
+        self.online_refine = True
+        self.refine_window_size = window
+        self.refine_stride = stride
+        self.refine_feedback = feedback
+        self.refine_photo = photo
+        self.refine_gate = gate
+        self._kf_conds = []
+
+    def _kf_window(self, kfs):
+        from ..parallel import ba
+
+        return ba.Window(
+            rot=torch.stack([kf[1][0:9].reshape(3, 3) for kf in kfs]),
+            pos=torch.stack([kf[1][9:12] for kf in kfs]),
+            scans=torch.stack([kf[2][:, 0:3] for kf in kfs]),
+            valid=torch.stack([kf[2][:, 3] > 0.5 for kf in kfs]))
+
+    def _build_photo(self, kfs):
+        """The keyframes' captures as ba.PhotoFactors; None unless every
+        keyframe of the window carries one."""
+        from ..parallel import ba
+
+        if not all(kf[3] is not None for kf in kfs):
+            return None
+        ph = [kf[3] for kf in kfs]
+        return ba.PhotoFactors(
+            img=torch.stack([p[0] for p in ph]).to(torch.float32),
+            inv_expo=torch.stack([p[1] for p in ph]),
+            pts_w=torch.stack([p[2] for p in ph]),
+            target=torch.stack([p[3] for p in ph]),
+            valid=torch.stack([p[4] for p in ph]),
+            scale=torch.stack([p[5] for p in ph]))
+
+    def _build_links(self, kfs):
+        """Preintegrated IMU links between consecutive keyframes
+        (ba.ImuLinks) from the kept raw IMU history, biased by each
+        link's start keyframe's filter biases. Those come from the
+        keyframes' host copies: every start keyframe is older than the
+        newest, so its copy has landed and reading it waits for nothing
+        on the device. Velocities and gravity are gathered on the
+        device."""
+        from ..parallel import ba
+
+        if not self._imu_hist:
+            return None
+        K = len(kfs)
+        ts = np.array([kf[0] for kf in kfs])
+        t_all = np.concatenate([h[0] for h in self._imu_hist])
+        g_all = np.concatenate([h[1] for h in self._imu_hist])
+        a_all = np.concatenate([h[2] for h in self._imu_hist])
+        lo = ts[0] - 2.0  # trim the history below the window
+        if len(t_all) and t_all[0] < lo - 10.0:
+            keep = t_all >= lo
+            self._imu_hist = [(t_all[keep], g_all[keep], a_all[keep])]
+        dR = np.tile(np.eye(3), (K, 1, 1))
+        dp = np.zeros((K, 3))
+        dts = np.full(K, 1e-3)
+        valid = np.zeros(K, bool)
+        for k in range(K - 1):
+            st = _host_state(kfs[k]).astype(np.float64)
+            dRk, dpk, dtk = ba.preintegrate(
+                t_all, g_all, a_all, st[15:18], st[18:21], ts[k], ts[k + 1])
+            dR[k], dp[k], dts[k] = dRk, dpk, max(dtk, 1e-3)
+            # a sample-free interval (the dtk == 0 sentinel) must not
+            # become an identity link asserting zero relative motion
+            valid[k] = dtk > 1e-3
+        f32 = np.float32
+        return ba.ImuLinks(
+            dR=self._put(dR.astype(f32)), dp=self._put(dp.astype(f32)),
+            dt=self._put(dts.astype(f32)),
+            vel=torch.stack([kf[1][12:15] for kf in kfs]),
+            grav=kfs[-1][1][21:24], valid=self._put(valid))
+
+    def _submit_refine(self) -> bool:
+        kfs = self._keyframes[-self.refine_window_size:]
+        if self.refine_gate > 0.0:
+            conds = self._kf_conds[-self.refine_window_size:]
+            if conds and min(conds) >= self.refine_gate:
+                # a healthy window: skip the backend (the check re-runs at
+                # every later keyframe, so degeneracy engages within one)
+                self.refine_gate_skips += 1
+                return False
+        links = self._build_links(kfs) if self.refine_imu_links else None
+        photo = self._build_photo(kfs) if self.refine_photo else None
+        ok = self._refiner.submit(self._kf_window(kfs), meta=kfs,
+                                  links=links, photo=photo)
+        self.refine_submits += ok
+        return ok
+
+    def _consume_refine(self, force: bool = False):
+        """Collect a completed refinement (waiting for it only with
+        force) and apply the newest keyframe's pose delta to the live
+        state. A fused pipeline's next replay reads the new state: its
+        graph copies it into the static buffer first (FrameGraphs._bind),
+        as after a map slide."""
+        if self._refiner is None:
+            return
+        out = self._refiner.poll(force=force)
+        if out is None:
+            return
+        kfs, rot_r, pos_r = out
+        for i, kf in enumerate(kfs):
+            self.refined_keyframes[kf[0]] = (rot_r[i], pos_r[i])
+        if not self.refine_feedback:
+            return
+        st0 = _host_state(kfs[-1])
+        R_d = rot_r[-1] @ st0[0:9].reshape(3, 3).T
+        p_d = pos_r[-1] - R_d @ st0[9:12]
+        ang = np.degrees(np.arccos(np.clip((np.trace(R_d) - 1) / 2, -1, 1)))
+        if ang < _MAX_DELTA_DEG and np.linalg.norm(p_d) < _MAX_DELTA_M:
+            self.packed = self._apply_delta(self.packed, R_d, p_d)
+            self._refine_deltas.append((self.last_update_time, R_d, p_d))
+
+    def _apply_delta(self, packed, R_d, p_d):
+        """Left (world-frame) SE(3) correction from the backend: T <- D T
+        for the pose, v <- R_d v; biases, gravity and covariance
+        untouched. Returns a new packed state."""
+        state, cov = unpack_state(packed)
+        R = self._put(np.asarray(R_d, np.float32))
+        p = self._put(np.asarray(p_d, np.float32))
+        return pack_state(state._replace(
+            rot=so3.normalize_rotation(R @ state.rot), pos=R @ state.pos + p,
+            vel=R @ state.vel), cov)
+
+    def refined_keyframe_trajectory(self):
+        """[(t, R, p)] of every keyframe, its refined pose where a window
+        covered it (the newest refinement wins): the backend's smoothed
+        trajectory."""
+        out = []
+        for kf in self._keyframes:
+            if kf[0] in self.refined_keyframes:
+                R, p = self.refined_keyframes[kf[0]]
+            else:
+                v = _host_state(kf)
+                R, p = v[0:9].reshape(3, 3), v[9:12]
+            out.append((kf[0], R, p))
+        return out
+
+    def refine_trajectory(self, outer_iters: int = 2, gn_iters: int = 3,
+                          max_keyframes: int = 32, mesh=None,
+                          imu_links: bool = True, photo: bool = None):
+        """Post-run sliding-window refinement of the last `max_keyframes`
+        keyframes (set `keyframe_every` before the run), with the IMU
+        links where the history has them and, with `photo` (default
+        refine_photo), the photometric factors. Returns [(t, R, p)]."""
+        from ..parallel import ba
+
+        if not self._keyframes:
+            raise ValueError("no keyframes: set keyframe_every before the run")
+        kfs = self._keyframes[-max_keyframes:]
+        use_photo = self.refine_photo if photo is None else photo
+        refined, _ = ba.refine_window(
+            self._kf_window(kfs), self.map_cfg, outer_iters=outer_iters,
+            gn_iters=gn_iters, dept_err=self.cfg.lio.dept_err,
+            beam_err=self.cfg.lio.beam_err, mesh=mesh,
+            imu_links=self._build_links(kfs) if imu_links else None,
+            photo=self._build_photo(kfs) if use_photo else None,
+            cam=self.cam, Rci=self.Rci, Pci=self.Pci,
+            patch_size=self.vio_cfg.patch_size,
+            photo_weight=1.0 / self.cfg.vio.img_point_cov)
+        R_np = refined.rot.cpu().numpy()
+        p_np = refined.pos.cpu().numpy()
+        return [(kf[0], R_np[i], p_np[i]) for i, kf in enumerate(kfs)]
+
+
+def _host_copy(t: torch.Tensor):
+    """(host tensor, event or None): a copy of a device tensor queued to
+    pinned memory, its landing marked by an event; on the CPU a clone."""
+    if t.device.type != "cuda":
+        return t.clone(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
+def _host_state(kf) -> np.ndarray:
+    """A keyframe's (25,) packed state on the host, from its copy."""
+    host, ev = kf[4]
+    if ev is not None:
+        ev.synchronize()
+    return host.numpy()

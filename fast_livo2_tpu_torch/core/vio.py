@@ -46,18 +46,23 @@ truncate toward zero and integer `//` floors, as in the JAX package.
 `colorize_points` samples the frame at each projected scan point (the
 pipeline's coloured point-cloud accumulation).
 
-Not in this slice (the pipeline raises, naming ROADMAP.md Queue 1 item
-12): photometric_update_ic, raycast recovery and capture_photo_factors.
+The extras of the JAX package, in both loop forms where they iterate:
+the inverse-compositional update (`photometric_update_ic`, 6-dof, tensor
+ops, no K2), raycast recovery of LiDAR-blind grid cells (`make_ray_table`,
+`raycast_recover`; a fresh 8192-slot scan table a frame, built with
+ops/voxel_hash.lookup_or_insert), and the photometric factors the
+sliding-window backend reads (`capture_photo_factors`, parallel/ba.py).
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models import camera as cam_mod
 from ..ops import image as img_ops
 from ..ops import photo_iteration as photo_mod
-from ..ops import so3
+from ..ops import so3, voxel_hash
 from .state import DIM_STATE, NavState, boxminus, boxplus, select
 from .voxel_map import (VoxelMap, VoxelMapConfig, _const, quad6, query_plane,
                         sym6)
@@ -86,6 +91,10 @@ _O_SCORE = 19
 OBS_W = 20
 
 _BIG = 3e38
+# raycast: the per-frame scan-occupancy table's slots, and the fixed sym6
+# world variance of a recovered candidate (the JAX package's vio_step)
+RAY_SCAN_SLOTS = 8192
+RAY_VAR6 = (1e-2, 0.0, 0.0, 1e-2, 0.0, 1e-2)
 
 
 class VIOConfig(NamedTuple):
@@ -554,10 +563,8 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
         if fused:
             meta, ref_patch = photo_mod.pack_points(
                 submap.pos, ref, eff_lvl, submap.valid, ps)
-        old_state = state
-        last_error = torch.full((), _BIG, dtype=f32, device=dev)
-        stop = torch.zeros((), dtype=torch.bool, device=dev)  # device loop
-        for it in range(cfg.max_iterations):
+
+        def normal_equations(state):  # (called within this level)
             Rcw, Pcw = camera_pose(state, Rci, Pci)
             tau = state.inv_expo
             if fused:
@@ -566,72 +573,172 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
                     cam.cy, cam.d, expo_col, has_dist)
                 HTH7, HTz7, err_sum, _ = photo_mod.photo_iteration(
                     img32, meta, ref_patch, par, ps)
-                HTH7 = HTH7.to(f32)
-                HTz7 = HTz7.to(f32)
-                error = err_sum.to(f32) / n_meas
+                return HTH7.to(f32), HTz7.to(f32), err_sum.to(f32) / n_meas
+            pf = submap.pos @ Rcw.T + Pcw
+            px = cam_mod.world2cam(cam, pf)
+            ok = submap.valid & (pf[:, 2] > 1e-6)
+            if cfg.true_pyramid:
+                val, du, dv = img_ops.sample_patches_with_grad(
+                    img_stack, px, scale, ps, img_idx=eff_lvl)
             else:
-                pf = submap.pos @ Rcw.T + Pcw
-                px = cam_mod.world2cam(cam, pf)
-                ok = submap.valid & (pf[:, 2] > 1e-6)
-                if cfg.true_pyramid:
-                    val, du, dv = img_ops.sample_patches_with_grad(
-                        img_stack, px, scale, ps, img_idx=eff_lvl)
-                else:
-                    val, du, dv = img_ops.sample_patches_with_grad(
-                        img, px, scale, ps)
-                Jimg = (torch.stack([du, dv], dim=-1)
-                        * (tau * inv_scale[:, None])[..., None])
-                Jdpi = cam_mod.projection_jacobian(cam, pf)  # (M, 2, 3)
-                p_hat = so3.skew(pf)
-                Jca = torch.einsum("mpi,mij->mpj", Jimg, Jdpi)  # (M, ps², 3)
-                Jdphi = torch.einsum("mpi,mij->mpj", Jca, p_hat)
-                JdR = (torch.einsum("mpi,ij->mpj", Jdphi, Jdphi_dR)
-                       + torch.einsum("mpi,ij->mpj", -Jca, Jdp_dR))
-                Jdt = torch.einsum("mpi,ij->mpj", -Jca, Rcw)  # Jdp_dt = Rcw
-                res = tau * val - ref
-                Hcol = (val * expo_col)[..., None]
-                H = torch.cat([JdR, Jdt, Hcol], dim=-1)  # (M, ps², 7)
-                okf = ok.to(f32)
-                error = torch.sum(okf[:, None] * res * res) / n_meas
-                HTH7 = torch.einsum("mpi,mpj,m->ij", H, H, okf)
-                HTz7 = torch.einsum("mpi,mp,m->i", H, res, okf)
-            HTH = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
-            HTH[0:7, 0:7] = HTH7
-            K_1 = torch.linalg.inv_ex(HTH + P_scaled_inv).inverse
-            G = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
-            G[:, 0:7] = K_1[:, 0:7] @ HTH7
-            vec = boxminus(state_prop, state)
-            sol = -K_1[:, 0:7] @ HTz7 + vec - G[:, 0:7] @ vec[0:7]
+                val, du, dv = img_ops.sample_patches_with_grad(
+                    img, px, scale, ps)
+            Jimg = (torch.stack([du, dv], dim=-1)
+                    * (tau * inv_scale[:, None])[..., None])
+            Jdpi = cam_mod.projection_jacobian(cam, pf)  # (M, 2, 3)
+            p_hat = so3.skew(pf)
+            Jca = torch.einsum("mpi,mij->mpj", Jimg, Jdpi)  # (M, ps², 3)
+            Jdphi = torch.einsum("mpi,mij->mpj", Jca, p_hat)
+            JdR = (torch.einsum("mpi,ij->mpj", Jdphi, Jdphi_dR)
+                   + torch.einsum("mpi,ij->mpj", -Jca, Jdp_dR))
+            Jdt = torch.einsum("mpi,ij->mpj", -Jca, Rcw)  # Jdp_dt = Rcw
+            res = tau * val - ref
+            Hcol = (val * expo_col)[..., None]
+            H = torch.cat([JdR, Jdt, Hcol], dim=-1)  # (M, ps², 7)
+            okf = ok.to(f32)
+            error = torch.sum(okf[:, None] * res * res) / n_meas
+            return (torch.einsum("mpi,mpj,m->ij", H, H, okf),
+                    torch.einsum("mpi,mp,m->i", H, res, okf), error)
 
-            # Accept/rollback (:1648-1681): on improvement keep the
-            # pre-update state and apply the solution; otherwise revert
-            # to the saved state and stop. In the device loop an
-            # iteration after the stop changes nothing.
-            accept = error <= last_error
-            new_state = boxplus(state, sol)
-            if device_loop:
-                active = ~stop
-                back = select(active, old_state, state)
-                accept = active & accept
-            else:
-                back = old_state
-            old_state, state = (select(accept, state, old_state),
-                                select(accept, new_state, back))
-            rot_add = torch.linalg.norm(sol[0:3])
-            t_add = torch.linalg.norm(sol[3:6])
-            converged = (rot_add * 57.3 < 0.001) & (t_add * 100.0 < 0.001)
-            G_keep = torch.where(accept, G, G_keep)
-            final_err = torch.where(accept, error, final_err)
-            last_error = torch.where(accept, error, last_error)
-            if device_loop:
-                iterations = iterations + active.to(torch.int32)
-                stop = stop | ~accept | converged
-                continue
-            iterations += 1
-            # The loop condition of the JAX while_loop, read on the host;
-            # after the last iteration the count alone ends the level.
-            if it + 1 < cfg.max_iterations and bool(~accept | converged):
-                break
+        state, G_keep, final_err, n_it = _iterate_level(
+            state_prop, state, G_keep, final_err, P_scaled_inv,
+            normal_equations, cfg.max_iterations, device_loop)
+        iterations = iterations + n_it
+
+    cov = cov_prop - G_keep @ cov_prop
+    return state, cov, final_err, iterations
+
+
+def _iterate_level(state_prop: NavState, state: NavState, G_keep, final_err,
+                   P_scaled_inv, normal_equations, max_iterations: int,
+                   device_loop: bool):
+    """One pyramid level of the iterated photometric ESIKF (updateState's
+    loop, vio.cpp:1558-1688), shared by the forward and the inverse-
+    compositional updates. normal_equations(state) -> (HTH (n, n), HTz
+    (n,), error) over the first n state columns. Returns (state, G_keep,
+    final_err, iterations that took effect: an int, or a 0-d int32
+    tensor in the device loop)."""
+    f32, dev = P_scaled_inv.dtype, P_scaled_inv.device
+    old_state = state
+    last_error = torch.full((), _BIG, dtype=f32, device=dev)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)  # device loop
+    iterations = 0
+    for it in range(max_iterations):
+        HTHn, HTzn, error = normal_equations(state)
+        n = HTHn.shape[0]
+        HTH = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
+        HTH[0:n, 0:n] = HTHn
+        K_1 = torch.linalg.inv_ex(HTH + P_scaled_inv).inverse
+        G = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
+        G[:, 0:n] = K_1[:, 0:n] @ HTHn
+        vec = boxminus(state_prop, state)
+        sol = -K_1[:, 0:n] @ HTzn + vec - G[:, 0:n] @ vec[0:n]
+
+        # Accept/rollback (:1648-1681): on improvement keep the pre-update
+        # state and apply the solution; otherwise revert to the saved
+        # state and stop. In the device loop an iteration after the stop
+        # changes nothing.
+        accept = error <= last_error
+        new_state = boxplus(state, sol)
+        if device_loop:
+            active = ~stop
+            back = select(active, old_state, state)
+            accept = active & accept
+        else:
+            back = old_state
+        old_state, state = (select(accept, state, old_state),
+                            select(accept, new_state, back))
+        rot_add = torch.linalg.norm(sol[0:3])
+        t_add = torch.linalg.norm(sol[3:6])
+        converged = (rot_add * 57.3 < 0.001) & (t_add * 100.0 < 0.001)
+        G_keep = torch.where(accept, G, G_keep)
+        final_err = torch.where(accept, error, final_err)
+        last_error = torch.where(accept, error, last_error)
+        if device_loop:
+            iterations = iterations + active.to(torch.int32)
+            stop = stop | ~accept | converged
+            continue
+        iterations += 1
+        # The loop condition of the JAX while_loop, read on the host;
+        # after the last iteration the count alone ends the level.
+        if it + 1 < max_iterations and bool(~accept | converged):
+            break
+    return state, G_keep, final_err, iterations
+
+
+def photometric_update_ic(state_prop: NavState, cov_prop, submap: Submap,
+                          img, ring: FrameRing, cam: cam_mod.Camera, Rci,
+                          Pci, cfg: VIOConfig, device_loop: bool = False):
+    """Inverse-compositional variant of the photometric update
+    (precomputeReferencePatches + updateStateInverse, vio.cpp:1327-1518):
+    per-pixel Jacobians are precomputed once per pyramid level from the
+    reference frame's gradients (sampled from the ring at each point's
+    reference slot), so each iteration samples only current-image values
+    and composes the cached 6-dof Jacobian with the current rotation
+    (:1470-1474). Like the reference it is 6-dof (no exposure column)
+    with plain pyramid scales (no per-point search level), and it runs
+    no K2: tensor ops in both packages. Returns photometric_update's
+    (state, cov, mean_error, iterations), in either loop form."""
+    f32 = cov_prop.dtype
+    dev = cov_prop.device
+    ps = cfg.patch_size
+    M = submap.valid.shape[0]
+
+    cov_sym = 0.5 * (cov_prop + cov_prop.T)
+    P_scaled_inv = torch.linalg.inv_ex(cov_sym / cfg.img_point_cov).inverse
+    n_meas = torch.clamp(torch.sum(submap.valid) * ps * ps, min=1).to(f32)
+
+    ref_px = submap.ref_meta[:, 0:2]
+    R_ref_w = submap.ref_meta[:, 2:11].reshape(M, 3, 3)
+    t_ref = submap.ref_meta[:, 11:14]
+    slot = torch.clamp(submap.ref_meta[:, 14].to(torch.int32), 0,
+                       cfg.frame_ring - 1)
+    # pf in the ref camera: f_ref * depth (:1350-1352)
+    f_ref = cam_mod.cam2world(cam, ref_px)
+    ref_cam_center = -torch.einsum("mji,mj->mi", R_ref_w, t_ref)
+    depth = torch.linalg.norm(submap.pos - ref_cam_center, dim=-1)
+    pf_ref = f_ref * (depth / torch.clamp(f_ref[:, 2], min=1e-6))[:, None]
+    p_w_hat = so3.skew(submap.pos)
+
+    state = state_prop
+    G_keep = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
+    final_err = torch.zeros((), dtype=f32, device=dev)
+    iterations = 0
+    for level in reversed(range(cfg.pyramid_levels)):
+        scale = torch.full((M,), 1 << level, dtype=torch.int32, device=dev)
+        inv_scale = 1.0 / float(1 << level)
+        ref = submap.warp_patch[:, level, :]
+        # --- reference Jacobians (:1341-1394) ---
+        _, du_r, dv_r = img_ops.sample_patches_with_grad(
+            ring.imgs, ref_px, scale, ps, img_idx=slot)
+        Jimg_r = torch.stack([du_r, dv_r], dim=-1) * inv_scale  # (M, ps², 2)
+        Jdpi_r = cam_mod.projection_jacobian(cam, pf_ref)  # (M, 2, 3)
+        JR = torch.einsum("mpi,mij,mjk->mpk", Jimg_r, Jdpi_r, R_ref_w)
+        JdR0 = torch.einsum("mpi,mij->mpj", JR, p_w_hat)  # (M, ps², 3)
+        Jdt0 = -JR
+
+        def normal_equations(state):  # (called within this level)
+            Rcw, Pcw = camera_pose(state, Rci, Pci)
+            pf = submap.pos @ Rcw.T + Pcw
+            px = cam_mod.world2cam(cam, pf)
+            ok = submap.valid & (pf[:, 2] > 1e-6)
+            res = img_ops.sample_patches(img, px, scale, ps) - ref
+            Rwi = state.rot
+            # JdR = J_dR Rwi + J_dt [Pwi]x Rwi ; Jdt = J_dt Rwi (:1472-1473)
+            JdR = (torch.einsum("mpi,ij->mpj", JdR0, Rwi)
+                   + torch.einsum("mpi,ij,jk->mpk", Jdt0,
+                                  so3.skew(state.pos), Rwi))
+            Jdt = torch.einsum("mpi,ij->mpj", Jdt0, Rwi)
+            H = torch.cat([JdR, Jdt], dim=-1)  # (M, ps², 6)
+            okf = ok.to(f32)
+            error = torch.sum(okf[:, None] * res * res) / n_meas
+            return (torch.einsum("mpi,mpj,m->ij", H, H, okf),
+                    torch.einsum("mpi,mp,m->i", H, res, okf), error)
+
+        state, G_keep, final_err, n_it = _iterate_level(
+            state_prop, state, G_keep, final_err, P_scaled_inv,
+            normal_equations, cfg.max_iterations, device_loop)
+        iterations = iterations + n_it
 
     cov = cov_prop - G_keep @ cov_prop
     return state, cov, final_err, iterations
@@ -934,18 +1041,16 @@ class VIOStepResult(NamedTuple):
 def vio_step(state_prop: NavState, cov_prop, pool: VisualPool, ring: FrameRing,
              vmap_state: VoxelMap, img, pg_w, pg_normal, pg_var, pg_valid,
              frame_id, cam: cam_mod.Camera, Rci, Pci, cfg: VIOConfig,
-             map_cfg: VoxelMapConfig, device_loop: bool = False
-             ) -> VIOStepResult:
+             map_cfg: VoxelMapConfig, ray_table=None,
+             device_loop: bool = False) -> VIOStepResult:
     """One VIO frame (processFrame, vio.cpp:1786-1876): ring insert ->
-    depth raster -> retrieval -> iterated photometric update -> new-point
-    generation + observation update + reference refinement. pg_var:
-    (N, 3, 3) or (N, 6) sym6; frame_id a 0-d int32 tensor. The pool and
-    ring are updated in place. `device_loop`: the photometric update's
-    host-read-free form."""
-    if cfg.inverse_composition_en or cfg.raycast_en:
-        raise NotImplementedError(
-            "vio.inverse_composition_en and vio.raycast_en are not ported "
-            "yet: ROADMAP.md Queue 1 item 12")
+    depth raster -> retrieval -> iterated photometric update (forward, or
+    inverse-compositional with `inverse_composition_en`) -> with
+    `raycast_en` and a `ray_table` (make_ray_table), raycast candidates
+    appended to the scan's rows -> new-point generation + observation
+    update + reference refinement. pg_var: (N, 3, 3) or (N, 6) sym6;
+    frame_id a 0-d int32 tensor. The pool and ring are updated in place.
+    `device_loop`: the photometric update's host-read-free form."""
     pg_var6 = pg_var if pg_var.dim() == 2 else sym6(pg_var)
     pool, ring, frame_slot = ring_insert(pool, ring, img, frame_id, cfg)
 
@@ -955,12 +1060,104 @@ def vio_step(state_prop: NavState, cov_prop, pool: VisualPool, ring: FrameRing,
     submap, pool = retrieve(pool, ring, img, depth_img, state_prop, cam, Rci,
                             Pci, cfg)
     n_tracked = torch.sum(submap.valid.to(torch.int32))
-    state, cov, mean_err, iters = photometric_update(
-        state_prop, cov_prop, submap, img, cam, Rci, Pci, cfg,
-        device_loop=device_loop)
+    if cfg.inverse_composition_en:
+        state, cov, mean_err, iters = photometric_update_ic(
+            state_prop, cov_prop, submap, img, ring, cam, Rci, Pci, cfg,
+            device_loop=device_loop)
+    else:
+        state, cov, mean_err, iters = photometric_update(
+            state_prop, cov_prop, submap, img, cam, Rci, Pci, cfg,
+            device_loop=device_loop)
+
+    if cfg.raycast_en and ray_table is not None:
+        ray_samples, border_cell = ray_table
+        scan_tab, _ = voxel_hash.lookup_or_insert(
+            voxel_hash.make_table(RAY_SCAN_SLOTS, pg_w.device),
+            voxel_hash.voxel_key(pg_w, map_cfg.voxel_size), pg_valid)
+        rc_pos, rc_nrm, rc_ok = raycast_recover(
+            vmap_state, map_cfg, ~submap.valid, border_cell, ray_samples,
+            scan_tab, state, Rci, Pci)
+        rc_var6 = _const(RAY_VAR6, pg_var6.dtype, str(pg_var6.device))
+        pg_w = torch.cat([pg_w, rc_pos])
+        pg_normal = torch.cat([pg_normal, rc_nrm])
+        pg_var6 = torch.cat([pg_var6, rc_var6.expand(rc_pos.shape[0], 6)])
+        pg_valid = torch.cat([pg_valid, rc_ok])
+
     pool, _, n_added = generate_and_maintain(
         pool, vmap_state, map_cfg, submap, img, pg_w, pg_normal, pg_var6,
         pg_valid, state, cam, Rci, Pci, frame_id, frame_slot, cfg)
     return VIOStepResult(state=state, cov=cov, pool=pool, ring=ring,
                          n_tracked=n_tracked, n_added=n_added,
                          mean_error=mean_err, photo_iterations=iters)
+
+
+def capture_photo_factors(pool: VisualPool, ring: FrameRing, img, state,
+                          pg_w, pg_valid, cam: cam_mod.Camera, Rci, Pci,
+                          cfg: VIOConfig):
+    """Photometric factor capture for the sliding-window backend
+    (parallel/ba.PhotoFactors): the frame's retrieval re-run against the
+    visual map at the keyframe's posterior state, the exposure-normalized
+    reference patches packed as fixed targets,
+
+        target = tau_ref * I_ref(warped)    (vio.cpp:1621's tau_ref * I_ref)
+
+    so that the backend's residual for the keyframe is
+    r = tau_k * I_k(pi(T_k^-1 p_w)) - target with only the pose free.
+    The pool is not written. Returns (pos (M, 3), target (M, ps²),
+    valid (M,), scale (M,) int32)."""
+    Rcw, Pcw = camera_pose(state, Rci, Pci)
+    depth_img = rasterize_depth(cam, Rcw, Pcw, pg_w, pg_valid, border_px(cfg))
+    submap, _ = retrieve(pool, ring, img, depth_img, state, cam, Rci, Pci, cfg)
+    target = submap.ref_expo[:, None] * submap.warp_patch[:, 0, :]
+    scale = torch.pow(2, submap.search_level.to(torch.int32))
+    return submap.pos, target, submap.valid, scale
+
+
+def make_ray_table(cam: cam_mod.Camera, cfg: VIOConfig, d_min: float = 0.1,
+                   d_max: float = 3.0, step: float = 0.2, device="cuda"):
+    """Per-grid-cell raycast sample table (initializeVIO, vio.cpp:91-118):
+    unit-depth bearings through each cell centre times a fixed depth
+    ladder. Returns (samples_cam (M, S, 3), border_cell (M,) bool)."""
+    gs, gnw, gnh = cfg.grid_size, cfg.grid_n_width, cfg.grid_n_height
+    rows, cols = np.meshgrid(np.arange(gnh), np.arange(gnw), indexing="ij")
+    u = (gs // 2 + cols * gs).reshape(-1).astype(np.float32)
+    v = (gs // 2 + rows * gs).reshape(-1).astype(np.float32)
+    border = ((rows == 0) | (cols == 0) | (rows == gnh - 1)
+              | (cols == gnw - 1)).reshape(-1)
+    f = cam_mod.cam2world(cam, torch.from_numpy(np.stack([u, v], -1)).to(device))
+    f = f / f[:, 2:3]  # unit depth
+    depths = torch.from_numpy(
+        np.arange(d_min, d_max + 1e-6, step, dtype=np.float32)).to(device)
+    return (f[:, None, :] * depths[None, :, None],
+            torch.from_numpy(border).to(device))
+
+
+def raycast_recover(vmap_state: VoxelMap, map_cfg: VoxelMapConfig,
+                    cell_empty: torch.Tensor, border_cell: torch.Tensor,
+                    ray_samples: torch.Tensor, scan_keys_table: torch.Tensor,
+                    state: NavState, Rci, Pci):
+    """Raycast recovery for LiDAR-blind grid cells (vio.cpp:487-591): walk
+    each empty, non-border cell's ray through the voxel grid; the first
+    sample whose voxel holds an LIO plane (before any voxel the current
+    scan occupies, where the reference stops, :517) gives a candidate
+    visual point at the plane centre with the plane normal, consumed by
+    the new-point generation like the reference's add_from_voxel_map list
+    (vio.cpp:834-854). Returns (cand_pos (M, 3), cand_normal (M, 3),
+    cand_valid (M,))."""
+    M, S, _ = ray_samples.shape
+    Rcw, Pcw = camera_pose(state, Rci, Pci)
+    R_wc = Rcw.T
+    cam_origin = -R_wc @ Pcw
+    pts_w = ray_samples.reshape(-1, 3) @ R_wc.T + cam_origin  # (M*S, 3)
+
+    keys0 = voxel_hash.voxel_key(pts_w, map_cfg.voxel_size)
+    touched = voxel_hash.lookup(scan_keys_table, keys0) >= 0
+    found, normal, _, center, _, _ = query_plane(vmap_state, pts_w, map_cfg)
+    touched = touched.reshape(M, S)
+    found = found.reshape(M, S)
+    blocked = torch.cumsum(touched.to(torch.int32), dim=1) > 0
+    usable = found & ~blocked
+    first = torch.argmax(usable.to(torch.int32), dim=1)  # first True (0: none)
+    has = torch.any(usable, dim=1) & cell_empty & ~border_cell
+    take = first + torch.arange(M, device=first.device) * S
+    return center[take], normal[take], has

@@ -12,6 +12,18 @@ chunks. As in the JAX package, queued camera frames are not persisted:
 re-push them after resume. Outputs gathered during the run (trajectory,
 clouds, traces, IMU-rate poses) are not state and are not saved.
 
+Version 2 adds the sliding-window backend's history, in the JAX
+package's array names: the keyframes (time, packed state, body scan),
+the refined keyframe poses and the keyframe count at the last submit, so
+that a resumed pipeline's online refinement goes on with its history;
+and the raw IMU history its links preintegrate (`kf_imu_*`, which the
+JAX package does not keep: without it the first windows after a resume
+would refine without links, and the resumed run would part from the
+uninterrupted one). As in the JAX package, photometric captures are not
+saved (resumed keyframes carry none) and a refinement in flight at save
+time is lost (the next stride submits its keyframes again). Version 1
+files load.
+
 The pool's sink row (row P, core/vio.py) is not saved: the pool is
 stored as the JAX package holds it, and `load` rebuilds the sink with
 io/convert.pool_from_numpy. No reader looks at the sink, so resume is
@@ -32,7 +44,8 @@ from ..core.voxel_map import VoxelMap
 from . import convert
 
 FORMAT = "fast_livo2_tpu_torch"
-VERSION = 1
+VERSION = 2
+READS = (1, 2)  # the versions `load` reads
 
 
 def save(path: str, pipeline) -> None:
@@ -84,6 +97,23 @@ def save(path: str, pipeline) -> None:
     for i, (pts, t_abs) in enumerate(pipeline.pending):
         arrays[f"pend_pts_{i}"] = pts
         arrays[f"pend_t_{i}"] = t_abs
+    kfs = pipeline._keyframes
+    if kfs:
+        arrays["kf_t"] = np.array([kf[0] for kf in kfs])
+        arrays["kf_packed"] = torch.stack([kf[1] for kf in kfs]).cpu().numpy()
+        arrays["kf_scan"] = torch.stack([kf[2] for kf in kfs]).cpu().numpy()
+        meta["last_refine_k"] = int(pipeline._last_refine_k)
+    if pipeline._imu_hist:
+        for i, name in enumerate(("t", "gyr", "acc")):
+            arrays[f"kf_imu_{name}"] = np.concatenate(
+                [h[i] for h in pipeline._imu_hist])
+    if pipeline.refined_keyframes:
+        rts = sorted(pipeline.refined_keyframes)
+        arrays["refined_t"] = np.array(rts)
+        arrays["refined_R"] = np.stack([pipeline.refined_keyframes[t][0]
+                                        for t in rts])
+        arrays["refined_p"] = np.stack([pipeline.refined_keyframes[t][1]
+                                        for t in rts])
     np.savez_compressed(path, __meta__=json.dumps(meta), **arrays)
 
 
@@ -103,9 +133,9 @@ def load(path: str, pipeline) -> None:
         raise ValueError(f"{path} is not a checkpoint of this package (a "
                          "JAX package checkpoint loads with "
                          "io.convert.load_jax_checkpoint)")
-    if meta["version"] != VERSION:
+    if meta["version"] not in READS:
         raise ValueError(f"checkpoint version {meta['version']}, this "
-                         f"package reads {VERSION}")
+                         f"package reads {READS}")
     has_pool = "pool_point" in a
     noise = ([a[f"noise_{n}"] for n in imu_mod.ImuNoise._fields]
              if "noise_cov_gyr" in a else None)
@@ -175,3 +205,17 @@ def restore(pipeline, meta: dict, a: dict, packed, vmap: Sequence,
         pipeline._last_slide_pos = a["last_slide_pos"]
     if "pos_snapshot" in a:
         pipeline._pos_snapshot = pipeline._put(a["pos_snapshot"])
+    if "kf_t" in a:
+        # (t, packed, scan4, no photo, the host copy of the state)
+        pipeline._keyframes = [
+            (float(t), convert._put(p, dev), convert._put(sc, dev), None,
+             (torch.from_numpy(np.array(p[0:25], np.float32)), None))
+            for t, p, sc in zip(a["kf_t"], a["kf_packed"], a["kf_scan"])]
+        pipeline._last_refine_k = int(meta.get("last_refine_k", 0))
+    if "kf_imu_t" in a:
+        pipeline._imu_hist = [(a["kf_imu_t"], a["kf_imu_gyr"],
+                               a["kf_imu_acc"])]
+    if "refined_t" in a:
+        pipeline.refined_keyframes = {
+            float(t): (R, p) for t, R, p in zip(
+                a["refined_t"], a["refined_R"], a["refined_p"])}

@@ -10,9 +10,14 @@ as numpy arrays, so a module of each can start from the same state. The
 port's pool tensors carry one extra sink row (core/vio.py), added here
 and stripped on the way back.
 
+The sliding-window backend's inputs (parallel/ba.py: Window, ImuLinks,
+PhotoFactors) cross the same way (`window_from_numpy`,
+`links_from_numpy`, `photo_from_numpy`).
+
 `load_jax_checkpoint` resumes a run of the JAX package in the port: it
 reads a checkpoint written by fast_livo2_tpu.io.checkpoint.save (format
-v5) as numpy arrays, without JAX.
+v5, with the backend's keyframes where it has them) as numpy arrays,
+without JAX.
 """
 
 import numpy as np
@@ -21,6 +26,7 @@ import torch
 from ..core.state import PACKED_LEN
 from ..core.vio import OBS_W, POINT_W, FrameRing, VisualPool
 from ..core.voxel_map import REC_W, STATS_W, VoxelMap
+from ..parallel.ba import ImuLinks, PhotoFactors, Window
 
 
 def state_from_numpy(packed, keys, stats, rec, device="cuda"):
@@ -103,6 +109,31 @@ def ring_to_numpy(ring: FrameRing):
     return ring.imgs.cpu().numpy(), ring.ids.cpu().numpy()
 
 
+def window_from_numpy(rot, pos, scans, valid, device="cuda") -> Window:
+    """numpy (rot (K, 3, 3), pos (K, 3), scans (K, N, 3), valid (K, N))
+    -> ba.Window on `device`."""
+    return Window(rot=_put(np.asarray(rot, np.float32), device),
+                  pos=_put(np.asarray(pos, np.float32), device),
+                  scans=_put(np.asarray(scans, np.float32), device),
+                  valid=_put(np.asarray(valid, bool), device))
+
+
+def links_from_numpy(dR, dp, dt, vel, grav, valid, device="cuda") -> ImuLinks:
+    """numpy ImuLinks fields -> ba.ImuLinks on `device`."""
+    f = [_put(np.asarray(a, np.float32), device) for a in (dR, dp, dt, vel,
+                                                           grav)]
+    return ImuLinks(*f, valid=_put(np.asarray(valid, bool), device))
+
+
+def photo_from_numpy(img, inv_expo, pts_w, target, valid, scale,
+                     device="cuda") -> PhotoFactors:
+    """numpy PhotoFactors fields -> ba.PhotoFactors on `device`."""
+    f = [_put(np.asarray(a, np.float32), device)
+         for a in (img, inv_expo, pts_w, target)]
+    return PhotoFactors(*f, valid=_put(np.asarray(valid, bool), device),
+                        scale=_put(np.asarray(scale, np.int32), device))
+
+
 # The JAX checkpoint flattens the dict {"noise", "packed", "pool", "ring",
 # "vmap"} in sorted-key order, NamedTuple fields in field order, into
 # leaf_0, leaf_1, ...: (name, leaf count). `noise` has no leaves when it
@@ -116,8 +147,9 @@ def load_jax_checkpoint(path: str, pipeline) -> None:
     into a freshly constructed port pipeline of the same configuration:
     device state, host scalars, the in-flight prefetch packet (the two
     packages' wire formats are the same bytes) and the streaming state.
-    The pool and ring are taken where the port's mode has them (LIVO).
-    Backend keyframes are not ported and raise NotImplementedError."""
+    The pool and ring are taken where the port's mode has them (LIVO),
+    and the backend's keyframes, refined poses and last submit count
+    (v4 and later) where the checkpoint carries them."""
     from . import checkpoint
 
     meta, a = checkpoint.read(path)
@@ -125,10 +157,6 @@ def load_jax_checkpoint(path: str, pipeline) -> None:
         raise ValueError(f"{path}: JAX checkpoint version "
                          f"{meta.get('version', 1)} predates the v5 voxel-map "
                          "layout (keys, stats, rec)")
-    if "kf_t" in a or "refined_t" in a:
-        raise NotImplementedError(
-            "the checkpoint carries backend keyframes; keyframes and online "
-            "refinement are not ported yet: ROADMAP.md Queue 1 item 15")
     n_leaves = sum(k.startswith("leaf_") for k in a)
     names = _JAX_LEAVES if n_leaves == 19 else _JAX_LEAVES[1:]
     if n_leaves != sum(n for _, n in names):

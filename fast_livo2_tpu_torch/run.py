@@ -6,7 +6,7 @@ one NVIDIA GPU by default.
         --camera configs/camera_pinhole.yaml --seq /data/seq01 \\
         --out /tmp/run01 [--mode livo] [--pcd] [--mesh] [--colmap] \\
         [--images] [--traces] [--checkpoint ck.npz] [--resume ck.npz] \\
-        [--max-frames N] [--device cuda|cpu]
+        [--online-refine] [--max-frames N] [--device cuda|cpu]
 
 The sequence directory uses the npz layout of io/dataset.py. The slam
 mode defaults from the config's enable flags like the reference
@@ -21,9 +21,12 @@ sequence, plus the images in LIVO mode) continues the run.
 
 `--stage-table` sets tpu.stage_timing and prints the per-frame stage
 table (propagate / undistort / downsample / lio / map / vio, device time
-on the card) before the summary line. `--online-refine` (the backend,
-ROADMAP.md Queue 1 item 15) is not ported yet and raises
-NotImplementedError.
+on the card) before the summary line. `--online-refine` turns on the
+sliding-window backend at its defaults (LIVOPipeline.enable_online_refine:
+a keyframe every 10 frames, a 16-keyframe window refined every 8 on its
+own CUDA stream, its pose delta fed back) and writes the refined keyframe
+trajectory to <out>/trajectory_refined.txt, with `refined_keyframes` in
+the summary.
 """
 
 import argparse
@@ -63,7 +66,8 @@ def main(argv=None):
                     help="per-stage device timing (tpu.stage_timing): "
                          "print the per-frame stage table at the end")
     ap.add_argument("--online-refine", action="store_true",
-                    help="sliding-window backend (not ported yet)")
+                    help="run the sliding-window backend behind the filter "
+                         "and write trajectory_refined.txt")
     ap.add_argument("--checkpoint", default=None,
                     help="write an engine snapshot at the end")
     ap.add_argument("--resume", default=None,
@@ -72,10 +76,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     args = ap.parse_args(argv)
-    if args.online_refine:
-        raise NotImplementedError("--online-refine (keyframes and online "
-                                  "refinement) is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 15")
 
     from .core.pipeline import LIVOPipeline
     from .io import checkpoint as ck_mod
@@ -96,6 +96,8 @@ def main(argv=None):
     pipe = LIVOPipeline(cfg, slam_mode=mode, device=args.device)
     if args.resume:
         ck_mod.load(args.resume, pipe)
+    if args.online_refine:
+        pipe.enable_online_refine()
 
     t0 = time.time()
     traj = pipe.process(seq, max_frames=args.max_frames,
@@ -114,6 +116,10 @@ def main(argv=None):
         "fps": round(len(traj) / wall, 2) if wall > 0 else 0.0,
         "dropped_inputs": pipe.dropped_inputs,
     }
+    if args.online_refine and pipe.refined_keyframes:
+        export.write_tum(os.path.join(args.out, "trajectory_refined.txt"),
+                         pipe.refined_keyframe_trajectory())
+        summary["refined_keyframes"] = len(pipe.refined_keyframes)
     if args.pcd or args.mesh:
         summary["pcd_points"] = pipe.save_pcd(
             os.path.join(args.out, "cloud.pcd"))

@@ -215,13 +215,33 @@ def test_load_jax_checkpoint_continues_the_jax_run(tmp_path, seq, livo_seq,
 
 
 def test_jax_checkpoint_with_keyframes_raises(tmp_path, seq):
-    _, _, ck = _jax_run_and_checkpoint(
-        tmp_path, seq, lambda: small_config(JaxConfig), "only_lio", 6)
-    with np.load(ck) as d:
-        arrays = dict(d)
-    arrays["kf_t"] = np.array([0.5])
-    bad = str(tmp_path / "kf.npz")
-    np.savez_compressed(bad, **arrays)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        convert.load_jax_checkpoint(
-            bad, LIVOPipeline(small_config(), "only_lio", device="cpu"))
+    """A JAX checkpoint that carries the online backend's keyframes (v4
+    and later) loads: keyframes, refined poses and the last submit count
+    come across bit for bit, and the port's backend goes on refining from
+    them."""
+    a = JaxPipeline(small_config(JaxConfig), slam_mode="only_lio")
+    a.enable_online_refine(keyframe_every=2, window=4, stride=2,
+                           outer_iters=1, gn_iters=1)
+    _push_all(a, seq)
+    a.poll(max_frames=12)
+    a._consume_refine(force=True)
+    assert len(a._keyframes) >= 4 and a.refined_keyframes
+    ck = str(tmp_path / "jax_kf.npz")
+    jax_checkpoint.save(ck, a)
+    b = LIVOPipeline(small_config(), "only_lio", device="cpu")
+    b.enable_online_refine(keyframe_every=2, window=4, stride=2,
+                           outer_iters=1, gn_iters=1)
+    convert.load_jax_checkpoint(ck, b)
+    assert [kf[0] for kf in b._keyframes] == [kf[0] for kf in a._keyframes]
+    for kf_a, kf_b in zip(a._keyframes, b._keyframes):
+        np.testing.assert_array_equal(kf_b[1].numpy(), np.asarray(kf_a[1]))
+        np.testing.assert_array_equal(kf_b[2].numpy(), np.asarray(kf_a[2]))
+    assert b._last_refine_k == a._last_refine_k
+    assert set(b.refined_keyframes) == set(a.refined_keyframes)
+    for t, (R, p) in a.refined_keyframes.items():
+        np.testing.assert_array_equal(b.refined_keyframes[t][1], p)
+    n_ref, n_kf = len(b.refined_keyframes), len(b._keyframes)
+    b.poll(flush=True)
+    b._finalize_host_views()
+    assert len(b._keyframes) > n_kf and b.refine_submits > 0
+    assert len(b.refined_keyframes) >= n_ref

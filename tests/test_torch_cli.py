@@ -3,7 +3,7 @@ tests/test_run_cli.py's scenario (config yaml -> npz sequence ->
 trajectory.txt + artifacts + JSON summary with ATE/drift), a run cut by
 --max-frames and finished with --resume (exactly the uninterrupted run's
 tail), the mode derivation, the per-stage table (--stage-table) and the
-option that is not ported."""
+backend (--online-refine)."""
 
 import json
 import os
@@ -94,11 +94,31 @@ def test_derive_mode():
     assert run.derive_mode(LIVOConfig()) == "livo"
 
 
-@pytest.mark.parametrize("flag,item", [("--online-refine", "item 15")])
-def test_unported_options_raise(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        run.main(["--config", "unused.yaml", "--seq", str(tmp_path),
-                  "--out", str(tmp_path), flag])
+@pytest.mark.parametrize("flag,written", [("--online-refine",
+                                            "trajectory_refined.txt")])
+def test_unported_options_raise(case, monkeypatch, flag, written):
+    """The option that was not ported runs: --online-refine turns the
+    backend on (enable_online_refine, here at a 2-frame keyframe interval
+    and a 4-keyframe window so that the 2 s sequence refines windows) and
+    writes the refined keyframe trajectory, with `refined_keyframes` in
+    the summary."""
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    enable = LIVOPipeline.enable_online_refine
+    monkeypatch.setattr(
+        LIVOPipeline, "enable_online_refine",
+        lambda self: enable(self, keyframe_every=2, window=4, stride=2,
+                            outer_iters=1, gn_iters=1))
+    root, _, full = case
+    out = root / "refined"
+    summary = run.main(["--config", str(root / "sensor.yaml"), "--seq",
+                        str(root / "seq"), "--out", str(out), flag,
+                        "--device", "cpu"])
+    assert summary["frames"] == full["frames"]
+    assert summary["refined_keyframes"] >= 4
+    rows = np.loadtxt(out / written)
+    assert rows.shape == (summary["refined_keyframes"], 8)
+    assert summary["ate_rmse_m"] < 0.06
 
 
 def test_run_cli_stage_table(case, capsys):

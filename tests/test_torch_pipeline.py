@@ -110,12 +110,27 @@ def test_points_wire_round_trip(wire_q16):
 
 
 def test_unported_modes_and_flags_raise():
-    LIVOPipeline(small_config(), slam_mode="livo", device="cpu")  # ported
-    for flag in ("raycast_en", "inverse_composition_en"):
-        cfg = small_config()
-        setattr(cfg.vio, flag, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LIVOPipeline(cfg, slam_mode="livo", device="cpu")
+    """Every flag and mode of the JAX package constructs and runs on the
+    port; what is still unported raises naming its ROADMAP.md item:
+    keyframe sharding (`mesh=`, Queue 1 item 16). An unknown mode is a
+    ValueError."""
+    from tests.test_torch_vio import livo_config
+
+    seq = None
+    for form in (None, "fused_frame", "stage_timing"):  # split, fused, staged
+        cfg = livo_config(LIVOConfig)
+        cfg.vio.raycast_en = cfg.vio.inverse_composition_en = True
+        if form:
+            setattr(cfg.tpu, form, True)
+        pipe = LIVOPipeline(cfg, slam_mode="livo", device="cpu")
+        assert pipe._ray_table is not None
+        if seq is None:
+            seq = synthetic.make_sequence(
+                duration=1.0, lidar_hz=10.0, img_hz=10.0, imu_hz=200.0,
+                cam=pipe.cam, seed=3, n_lines=6, n_per_line=300,
+                render=True, fov_deg=40.0)
+        traj = pipe.process(seq, max_frames=4)
+        assert len(traj) == 4 and pipe.photo_iterations > 0, form
     for section, flag in (("pcd_save", "pcd_save_en"),
                           ("publish", "pub_effect_point_en"),
                           ("uav", "imu_rate_odom"), ("evo", "pose_output_en")):
@@ -128,7 +143,9 @@ def test_unported_modes_and_flags_raise():
             setattr(cfg.tpu, flag, True)
             LIVOPipeline(cfg, slam_mode=mode, device="cpu")
     pipe = LIVOPipeline(small_config(), slam_mode="only_lio", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipe.enable_online_refine()
+    pipe.enable_online_refine()  # the backend is ported
+    assert pipe.online_refine and pipe.keyframe_every == 10
+    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        pipe.enable_online_refine(mesh=object())
     with pytest.raises(ValueError):
         LIVOPipeline(small_config(), slam_mode="vio", device="cpu")
