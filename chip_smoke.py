@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths (ONLY_LIO, full LIVO and the user's
 run through the CLI, with its outputs and checkpoint/resume, in split,
 fused and staged frames; the VIO extras; the sliding-window backend and
-multi-stream replay) on one NVIDIA GPU and hold every hand-written
-kernel against its plain PyTorch version.
+multi-stream replay; a ROS bag converted and run; sharding over
+torch.distributed) on one NVIDIA GPU and hold every hand-written kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -72,10 +73,12 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     seconds, graphs and their memory, bytes copied back a
                     frame, 0 host syncs in a replayed frame, K1 once and
                     K2 pyramid levels x iterations (20) a VIO frame
-                    beside the iterations that took effect; the fused run
-                    against the split one at the golden tolerances; steady
-                    replays under torch.profiler with K1 and K2 found in
-                    them by kernel name;
+                    beside the iterations that took effect; parity_fused*:
+                    a fused and a split run of their own under torch's
+                    deterministic algorithms, held to the golden
+                    tolerances (expected 0.0); steady replays under
+                    torch.profiler with K1 and K2 found in them by kernel
+                    name;
   20. stage_timing  LIVO with tpu.stage_timing: every stage's device ms
                     on every staged frame, the table printed, and the
                     trajectory against the split run with
@@ -115,11 +118,33 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     beside the filter's; frame ms with and without; the
                     feedback run's ATE within max(1.3 x, + 0.02 m) of the
                     run without (tests/test_long_run.py:120); 0 syncs in
-                    replayed frames but the refiner's captures.
+                    replayed frames but the refiner's captures;
+  27. rosbag        the LIVO sequence written to a ROS1 bag by the port's
+                    write_bag (Imu, Livox CustomMsg, raw mono8 Image),
+                    converted by `python -m fast_livo2_tpu_torch.convert_rosbag
+                    --blind 0` in a subprocess (points bit for bit, images
+                    and IMU equal, stamps within 1 us of the source), and
+                    the CLI on "cuda" under deterministic algorithms over
+                    it and over the source saved as npz with ROS-time
+                    stamps: ATE gates, trajectories bit for bit the same,
+                    K1 and K2 launches equal; bag bytes, write and
+                    convert s and MB/s, CLI wall s;
+  28. sharded       2 gloo ranks on cuda:0 (processes of this script,
+                    `--shard-rank`) at the full-width configuration
+                    (8,192 points, 3 layers of 2^18 slots, a 16-keyframe
+                    window from a LIVO run): lio_update over the points,
+                    10 update_map(mesh=) calls (replicas bit for bit
+                    equal), refine_window(mesh=) with IMU links and
+                    photometric factors, refine_window_map_sharded; each
+                    held against this process's single-process call at
+                    the golden tolerances; then the same calls under NCCL
+                    with world size 1, and whether the keyframe-sharded
+                    refine captures as a CUDA graph under NCCL; each
+                    call's ms and collective bytes.
 
 Then the `kernels` line (K1's and K2's launches on the split LIVO path
 and, as `launches_fused`, on the fused one; `launches_phases`, those of
-phases 22-26), the card's name and power
+phases 22-27), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failed
 phase exits non-zero before that line; there is no CPU fallback.
 Imports nothing of JAX. Every
@@ -140,6 +165,7 @@ process.
 """
 
 import contextlib
+import datetime
 import gc
 import hashlib
 import io
@@ -690,6 +716,22 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block (with cuBLAS's
+    deterministic workspace setting, which the mode asks for): the float
+    scatter-adds of the map insert and the downsample then sum in one
+    order, which alone parts two split runs by 3-4e-3 m over the 58
+    frames (stage_timing's spread)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def traj_diff(a, b):
     """(max position diff m, max rotation-matrix entry diff) of two runs
     over the same frames."""
@@ -1141,7 +1183,7 @@ def phase_pipeline_fused(seq, mode):
     (0: frame 0 builds the map and frame 1 is the warm-up and capture),
     K1 / K2 launches (K2: pyramid levels x iterations a VIO frame, every
     iteration masked or not) beside the iterations that took effect.
-    Returns (the fused run's trajectory, the split one's, launches)."""
+    Returns the fused run's launches."""
     cfg = full_width_config()
     runs = []
     for fused in (False, True, True, False):
@@ -1200,21 +1242,30 @@ def phase_pipeline_fused(seq, mode):
                         fz["iterations"] / vio_frames,
                     "split_photo_iterations": runs[0]["iterations"]})
     emit(out)
-    return traj, runs[0]["traj"], fz["launches"]
+    return fz["launches"]
 
 
-def phase_parity_fused(traj_fused, traj_split, mode):
-    """The fused card run against the split card run over every frame, at
-    the golden tolerances (the float scatter-adds of the map insert run in
-    no fixed order on the card; on the CPU the two are bit for bit the
-    same, tests/test_torch_frame_modes.py)."""
-    dp, dR = traj_diff(traj_fused, traj_split)
+def phase_parity_fused(seq, mode):
+    """A fused run against a split run over every frame, both under
+    torch's deterministic algorithms (their own pair, apart from the timed
+    turns of pipeline_fused), so that the comparison sees the two frame
+    forms and not the order of the card's float scatter-adds; held to the
+    golden tolerances, and expected to read 0.0 (on the CPU the two are
+    bit for bit the same, tests/test_torch_frame_modes.py)."""
+    runs = {}
+    with deterministic():
+        for fused in (False, True):
+            pipe, _, _, _, _ = run_sequence(seq, mode, fused_frame=fused)
+            runs[fused] = pipe.trajectory
+            del pipe
+            free_device_memory()
+    dp, dR = traj_diff(runs[True], runs[False])
     check(dp <= POS_TOL_M and dR <= ROT_TOL,
           f"{mode} fused vs split on the card: {dp} m, {dR}")
     emit({"phase": "parity_fused" if mode == "only_lio"
-          else "parity_fused_livo", "frames": len(traj_fused),
-          "max_pos_diff_m": dp, "max_rot_diff": dR, "pos_tol_m": POS_TOL_M,
-          "rot_tol": ROT_TOL})
+          else "parity_fused_livo", "frames": len(runs[True]),
+          "deterministic": True, "max_pos_diff_m": dp, "max_rot_diff": dR,
+          "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL})
 
 
 def phase_profile_fused(seq, mode, warm=12, frames=10):
@@ -1350,14 +1401,8 @@ def phase_vio_extras(seq):
     that mode. Returns {flag: the fused run's launches}."""
     from fast_livo2_tpu_torch.core import vio as vio_mod
 
-    # cuBLAS's deterministic workspace setting, which the mode asks for
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    was = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
+    with deterministic():
         return _vio_extras(seq, vio_mod)
-    finally:
-        torch.use_deterministic_algorithms(was)
 
 
 def _vio_extras(seq, vio_mod):
@@ -1779,6 +1824,510 @@ def phase_resume_backend(seq):
     free_device_memory()
 
 
+def bag_messages(seq):
+    """The sequence as the avia launch files' topics: /livox/imu
+    (sensor_msgs/Imu), /livox/lidar (livox_ros_driver/CustomMsg,
+    offset_time in ns, the valid-return tag 0x10) and /left_camera/image
+    (raw mono8 sensor_msgs/Image, which needs no OpenCV to decode), the
+    images cast to uint8 as save_sequence does."""
+    from types import SimpleNamespace as NS
+
+    from fast_livo2_tpu_torch.io import rosbag
+
+    msgs = []
+    for t, g, a in zip(seq.imu_stamps, seq.imu_gyr, seq.imu_acc):
+        msgs.append(("/livox/imu", rosbag.IMU_TYPE, float(t), NS(
+            header=rosbag.make_header(float(t), "imu"),
+            angular_velocity=NS(x=float(g[0]), y=float(g[1]), z=float(g[2])),
+            linear_acceleration=NS(x=float(a[0]), y=float(a[1]),
+                                   z=float(a[2])))))
+    for t, pts, offs in seq.scans:
+        arr = np.zeros(len(pts), rosbag._LIVOX_PT)
+        arr["offset_time"] = np.round(offs.astype(np.float64) * 1e9)
+        arr["x"], arr["y"], arr["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
+        arr["tag"] = 0x10
+        arr["line"] = np.arange(len(pts)) % 6
+        msgs.append(("/livox/lidar", rosbag.LIVOX_TYPE, float(t), NS(
+            header=rosbag.make_header(float(t), "livox"),
+            timebase=int(round(t * 1e9)), points_arr=arr)))
+    for t, img in seq.images:
+        img = np.ascontiguousarray(img.astype(np.uint8))
+        h, w = img.shape
+        msgs.append(("/left_camera/image", rosbag.IMAGE_TYPE, float(t), NS(
+            header=rosbag.make_header(float(t), "camera"), height=h, width=w,
+            encoding="mono8", is_bigendian=False, step=w, data=img.tobytes())))
+    return msgs
+
+
+def cli_run(seq_dir, out, root):
+    """`python -m fast_livo2_tpu_torch.run` in process on "cuda" over an npz
+    sequence, under deterministic algorithms, the kernels' launch counts
+    set to 0 just before and read just after: (summary, wall s, launches,
+    trajectory rows)."""
+    from fast_livo2_tpu_torch import run
+
+    with deterministic():
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run.main(["--config", os.path.join(root, "sensor.yaml"),
+                                "--seq", seq_dir, "--out", out,
+                                "--device", "cuda"])
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+    return summary, wall_s, launches, np.loadtxt(os.path.join(out,
+                                                              "trajectory.txt"))
+
+
+def ros_time(t):
+    """t as a ROS1 header carries it and the converter reads it back:
+    (sec, nsec) rounded to the nanosecond, then sec + nsec * 1e-9."""
+    sec = int(t)
+    return sec + int(round((t - sec) * 1e9)) * 1e-9
+
+
+def phase_rosbag(seq, frames):
+    """The user's bag: the full-width LIVO sequence written to a ROS1 bag
+    by the port's write_bag, converted by `python -m
+    fast_livo2_tpu_torch.convert_rosbag --blind 0` in a subprocess, and
+    the converted sequence held against the source: points bit for bit
+    as float32, IMU samples and images equal, stamps and point offsets
+    within 1 us. Then the port's CLI on "cuda" under deterministic
+    algorithms over the converted sequence and over the source saved as
+    npz with its stamps as ROS time carries them (ros_time: the
+    generator's float64 stamps, e.g. 0.05 + 0.1 = 0.15000000000000002,
+    differ from the bag's 0.15 in the last bit, and where an IMU stamp
+    equals a scan's end that bit decides which samples a frame
+    integrates). The generator's gt.npz is copied beside the converted
+    sequence (a bag carries no ground truth). Gates: run_cli's ATE gates
+    on both runs, the two trajectories bit for bit the same, K1 and K2
+    launched as often on the bag run as on the npz run."""
+    from fast_livo2_tpu_torch.io import dataset, rosbag, synthetic
+
+    root = os.path.join(REPO, "build", "smoke_bag")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    bag = os.path.join(root, "livo.bag")
+    t0 = time.perf_counter()
+    msgs = bag_messages(seq)
+    rosbag.write_bag(bag, msgs)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(bag)
+    conv = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "fast_livo2_tpu_torch.convert_rosbag",
+                        bag, conv, "--blind", "0"], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    check(p.returncode == 0, f"convert_rosbag failed:\n{p.stderr[-3000:]}")
+    src = os.path.join(root, "source")
+    dataset.save_sequence(src, dataset.NpzSequence(
+        imu_stamps=np.array([ros_time(t) for t in seq.imu_stamps]),
+        imu_gyr=seq.imu_gyr, imu_acc=seq.imu_acc,
+        scans=[(ros_time(t), p_, o) for t, p_, o in seq.scans],
+        images=[(ros_time(t), im) for t, im in seq.images], gt=seq.gt))
+    shutil.copy(os.path.join(src, "gt.npz"), os.path.join(conv, "gt.npz"))
+    a, b = dataset.load_sequence(conv), dataset.load_sequence(src)
+    check(len(a.scans) == len(seq.scans) and len(a.images) == len(seq.images)
+          and len(a.imu_stamps) == len(seq.imu_stamps),
+          f"converted {len(a.scans)} scans / {len(a.images)} images / "
+          f"{len(a.imu_stamps)} IMU, source {len(seq.scans)} / "
+          f"{len(seq.images)} / {len(seq.imu_stamps)}")
+    points_equal = all(np.array_equal(x[1], y[1].astype(np.float32))
+                       for x, y in zip(a.scans, seq.scans))
+    images_equal = all(np.array_equal(x[1], y[1].astype(np.uint8))
+                       for x, y in zip(a.images, seq.images))
+    imu_equal = (np.array_equal(a.imu_gyr, seq.imu_gyr)
+                 and np.array_equal(a.imu_acc, seq.imu_acc))
+    stamp_err = max(
+        float(np.abs(a.imu_stamps - seq.imu_stamps).max()),
+        max(abs(x[0] - y[0]) for x, y in zip(a.scans, seq.scans)),
+        max(abs(x[0] - y[0]) for x, y in zip(a.images, seq.images)))
+    offs_err = max(float(np.abs(x[2].astype(np.float64) - y[2]).max())
+                   for x, y in zip(a.scans, seq.scans))
+    check(points_equal and images_equal and imu_equal,
+          f"converted != source: points {points_equal}, images "
+          f"{images_equal}, IMU {imu_equal}")
+    check(stamp_err <= 1e-6 and offs_err <= 1e-6,
+          f"converted stamps {stamp_err} s, point offsets {offs_err} s")
+    # the two CLI inputs: the same arrays, bit for bit
+    check(np.array_equal(a.imu_stamps, b.imu_stamps)
+          and all(x[0] == y[0] and np.array_equal(x[1], y[1])
+                  and np.array_equal(x[2], y[2])
+                  for x, y in zip(a.scans, b.scans))
+          and all(x[0] == y[0] and np.array_equal(x[1], y[1])
+                  for x, y in zip(a.images, b.images)),
+          "the converted sequence and the ROS-time source differ")
+    sensor_yaml(os.path.join(root, "sensor.yaml"))
+    runs = {}
+    for name, d in (("bag", conv), ("npz", src)):
+        summary, wall_s, launches, rows = cli_run(
+            d, os.path.join(root, f"out_{name}"), root)
+        check(summary["mode"] == "livo" and summary["frames"] == frames,
+              f"{name}: CLI ran {summary['frames']} {summary['mode']} frames")
+        check(summary["ate_rmse_m"] < ATE_GATE_M,
+              f"{name}: CLI ATE {summary['ate_rmse_m']} m")
+        ate_interp = synthetic.ate_rmse([(r[0], r[1:4]) for r in rows], seq.gt)
+        check(ate_interp < ATE_GATE_M, f"{name}: trajectory ATE {ate_interp} m")
+        runs[name] = dict(summary=summary, wall_s=wall_s, launches=launches,
+                          rows=rows, ate_interp=ate_interp)
+    rb, rn = runs["bag"]["rows"], runs["npz"]["rows"]
+    check(rb.shape == rn.shape, f"the bag run wrote {rb.shape} rows, the npz "
+                                f"run {rn.shape}")
+    dp = float(np.abs(rb[:, 1:4] - rn[:, 1:4]).max())
+    dq = float(np.abs(rb[:, 4:8] - rn[:, 4:8]).max())
+    check(np.array_equal(rb, rn), f"bag vs npz trajectory: {dp} m, "
+                                  f"quaternion {dq}")
+    lb, ln = runs["bag"]["launches"], runs["npz"]["launches"]
+    check(lb == ln and ln["cov_scan"] > 0 and ln["photo_iteration"] > 0,
+          f"launches: bag run {lb}, npz run {ln}")
+    emit({"phase": "rosbag", "messages": len(msgs), "bag_bytes": size,
+          "write_s": write_s, "write_mb_per_s": size / 1e6 / write_s,
+          "convert_s": convert_s, "convert_mb_per_s": size / 1e6 / convert_s,
+          "converter_stdout": p.stdout.strip(),
+          "points_bitwise_equal": points_equal, "images_equal": images_equal,
+          "max_stamp_err_s": stamp_err, "max_offset_err_s": offs_err,
+          "frames": frames, "traj_max_pos_diff_m": dp,
+          "traj_max_quat_diff": dq, "deterministic": True,
+          **{f"{n}_{k}": runs[n][k] for n in runs
+             for k in ("wall_s", "launches", "ate_interp")},
+          **{f"{n}_ate_rmse_m": runs[n]["summary"]["ate_rmse_m"] for n in runs}})
+    return lb
+
+
+SHARD_FRAMES = 36  # LIVO frames before the window: 17 keyframes, 1 in 2
+SHARD_WINDOW = 16
+SHARD_MAP_UPDATES = 10
+SHARD_REPS = 3
+
+
+def shard_inputs(seq, root):
+    """The sharded phase's inputs from a split LIVO run on "cuda" of
+    SHARD_FRAMES frames with a keyframe every 2 (photometric factors
+    captured): the live map (3 layers of 2^18 slots), the posterior state
+    and covariance, the next scan voxel-downsampled to max_points_down
+    (8,192) as the LIO's body points, the next SHARD_MAP_UPDATES scans'
+    downsampled points put into the world at that state as map updates,
+    and the last SHARD_WINDOW keyframes' window, IMU links and
+    photometric factors. Written to root/inputs.npz (the map's
+    configuration to root/map_cfg.json); returned as (numpy arrays, the
+    map configuration)."""
+    from fast_livo2_tpu_torch.core import lio as lio_mod
+    from fast_livo2_tpu_torch.core import voxel_map as vm
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.core.state import unpack_state
+
+    cfg = full_width_config()
+    pipe = LIVOPipeline(cfg, "livo", device="cuda")
+    pipe.keyframe_every = 2
+    pipe.refine_photo = True
+    pipe.push_sequence(seq)
+    check(pipe.poll(max_frames=SHARD_FRAMES, flush=True) == SHARD_FRAMES,
+          "sharded: the LIVO run stopped early")
+    kfs = pipe._keyframes[-SHARD_WINDOW:]
+    check(len(kfs) == SHARD_WINDOW, f"sharded: {len(kfs)} keyframes")
+    state, cov = unpack_state(pipe.packed)
+    i_next = next(i for i, (t, _, _) in enumerate(seq.scans)
+                  if t > pipe.last_update_time)
+
+    def down(i):
+        pts = torch.as_tensor(seq.scans[i][1], dtype=torch.float32,
+                              device="cuda")
+        return lio_mod.voxel_downsample(
+            pts, torch.ones(pts.shape[0], dtype=torch.bool, device="cuda"),
+            cfg.preprocess.filter_size_surf, cfg.tpu.max_points_down)
+
+    body, valid = down(i_next)
+    R_ext = state.rot @ pipe.ext_R
+    frames, fvalid, var6 = [], [], []
+    for i in range(i_next + 1, i_next + 1 + SHARD_MAP_UPDATES):
+        pts, ok = down(i)
+        frames.append((pts @ pipe.ext_R.T + pipe.ext_T) @ state.rot.T + state.pos)
+        var6.append(vm.sym6(R_ext @ lio_mod.calc_body_cov(
+            pts, cfg.lio.dept_err, cfg.lio.beam_err) @ R_ext.T))
+        fvalid.append(ok)
+    window = pipe._kf_window(kfs)
+    links = pipe._build_links(kfs)
+    photo = pipe._build_photo(kfs)
+    check(photo is not None, "sharded: keyframes without photometric factors")
+    data = {"map_keys": pipe.vmap_state.keys, "map_stats": pipe.vmap_state.stats,
+            "map_rec": pipe.vmap_state.rec, "rot": state.rot, "pos": state.pos,
+            "vel": state.vel, "bias_g": state.bias_g, "bias_a": state.bias_a,
+            "grav": state.grav, "inv_expo": state.inv_expo, "cov": cov,
+            "body": body, "valid": valid, "ext_R": pipe.ext_R,
+            "ext_T": pipe.ext_T, "frames": torch.stack(frames),
+            "frames_valid": torch.stack(fvalid), "frames_var6": torch.stack(var6),
+            "Rci": pipe.Rci, "Pci": pipe.Pci,
+            **{f"w_{k}": v for k, v in window._asdict().items()},
+            **{f"l_{k}": v for k, v in links._asdict().items()},
+            **{f"p_{k}": v for k, v in photo._asdict().items()}}
+    data = {k: v.cpu().numpy() for k, v in data.items()}
+    np.savez(os.path.join(root, "inputs.npz"), **data)
+    map_cfg = pipe.map_cfg
+    with open(os.path.join(root, "map_cfg.json"), "w") as f:
+        json.dump(map_cfg._asdict(), f)
+    del pipe
+    free_device_memory()
+    return data, map_cfg
+
+
+def load_map_cfg(root):
+    from fast_livo2_tpu_torch.core import voxel_map as vm
+
+    with open(os.path.join(root, "map_cfg.json")) as f:
+        d = json.load(f)
+    return vm.VoxelMapConfig(**{**d, "layer_init_num": tuple(d["layer_init_num"])})
+
+
+def shard_calls(data, map_cfg, mesh):
+    """The sharded phase's four calls on "cuda" (mesh=None: one process),
+    each run once and then timed SHARD_REPS times (host clock around the
+    call and a device synchronize): the measurement-sharded lio_update,
+    SHARD_MAP_UPDATES update_map(mesh=) calls in a row (the frame's
+    insert), refine_window(mesh=) with IMU links and photometric factors,
+    and refine_window_map_sharded (single process: the replicated
+    refine_window it is held against). Returns (results as numpy, ms a
+    call, collective bytes a call)."""
+    from fast_livo2_tpu_torch.core import lio as lio_mod
+    from fast_livo2_tpu_torch.core import voxel_map as vm
+    from fast_livo2_tpu_torch.core.state import NavState, pack_state
+    from fast_livo2_tpu_torch.models import camera
+    from fast_livo2_tpu_torch.parallel import ba, map_shard
+    from fast_livo2_tpu_torch.parallel import sharding as shd
+
+    cfg = full_width_config()
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in data.items()}
+    vmap = vm.VoxelMap(t["map_keys"], t["map_stats"], t["map_rec"])
+    state = NavState(*(t[k] for k in NavState._fields))
+    shard = ((lambda x: x) if mesh is None
+             else (lambda x: shd.shard_points(x, mesh)))
+    window = ba.Window(*(t[f"w_{k}"] for k in ba.Window._fields))
+    links = ba.ImuLinks(*(t[f"l_{k}"] for k in ba.ImuLinks._fields))
+    photo = ba.PhotoFactors(*(t[f"p_{k}"] for k in ba.PhotoFactors._fields))
+    cam = camera.make_camera(cfg.camera)
+
+    def lio():
+        return lio_mod.lio_update(
+            state, t["cov"], vmap, shard(t["body"]), shard(t["valid"]),
+            t["ext_R"], t["ext_T"], map_cfg, dept_err=cfg.lio.dept_err,
+            beam_err=cfg.lio.beam_err, max_iterations=cfg.lio.max_iterations,
+            rematch_fresh=cfg.tpu.lio_rematch_fresh,
+            fresh_every_iter=cfg.tpu.lio_fresh_every_iter,
+            plane_info_cap=cfg.tpu.lio_plane_info_cap, mesh=mesh)
+
+    def maps():
+        m = vmap
+        with shd.deterministic(m.keys.device):
+            for f in range(SHARD_MAP_UPDATES):
+                m = vm.update_map(m, shard(t["frames"][f]),
+                                  shard(t["frames_var6"][f]),
+                                  shard(t["frames_valid"][f]), map_cfg,
+                                  mesh=mesh, compact=True)
+        return m
+
+    def refine():
+        return ba.refine_window(
+            window, map_cfg, outer_iters=2, gn_iters=2, mesh=mesh,
+            imu_links=links, photo=photo, cam=cam, Rci=t["Rci"], Pci=t["Pci"],
+            patch_size=cfg.vio.patch_size,
+            photo_weight=1.0 / cfg.vio.img_point_cov)
+
+    def refine_map():
+        if mesh is None:
+            return ba.refine_window(window, map_cfg, outer_iters=2, gn_iters=2)
+        return map_shard.refine_window_map_sharded(window, map_cfg, mesh,
+                                                   outer_iters=2, gn_iters=2)
+
+    out, ms, nbytes = {}, {}, {}
+    for name, fn in (("lio", lio), ("map", maps), ("refine", refine),
+                     ("refine_map", refine_map)):
+        res = fn()
+        torch.cuda.synchronize()
+        b0 = 0 if mesh is None else mesh.collective_bytes
+        times = []
+        for _ in range(SHARD_REPS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(times)
+        nbytes[name] = (0 if mesh is None
+                        else (mesh.collective_bytes - b0) / SHARD_REPS)
+        if name == "lio":
+            out["lio_packed"] = pack_state(res.state, res.cov)
+            out["lio_n_eff"] = res.n_effective
+        elif name == "map":
+            for k, v in res._asdict().items():
+                out[f"map_{k}_sha256"] = hashlib.sha256(
+                    v.cpu().numpy().tobytes()).hexdigest()
+            out["map_count"] = (res.keys[..., 0] != vm.EMPTY).sum()
+        else:
+            out[f"{name}_rot"], out[f"{name}_pos"] = res[0].rot, res[0].pos
+            out[f"{name}_n_used"] = res[1]
+    out = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+           for k, v in out.items()}
+    return out, ms, nbytes
+
+
+def shard_rank(argv):
+    """`chip_smoke.py --shard-rank ADDR WORLD RANK DIR`: one gloo rank on
+    cuda:0 of the sharded phase; its results to DIR/rank<RANK>.json."""
+    import torch.distributed as dist
+
+    from fast_livo2_tpu_torch.parallel import sharding as shd
+
+    addr, world, rank, root = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=addr, world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = shd.make_mesh(device="cuda")
+        with np.load(os.path.join(root, "inputs.npz")) as z:
+            data = {k: z[k] for k in z.files}
+        out, ms, nbytes = shard_calls(data, load_map_cfg(root), mesh)
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump({"out": {k: v.tolist() if isinstance(v, np.ndarray)
+                               else v for k, v in out.items()},
+                       "ms": ms, "collective_bytes": nbytes,
+                       "mesh": repr(mesh)}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(seq, world=2):
+    """Sharding over torch.distributed on the card: `world` gloo ranks,
+    each a process of this script on cuda:0, run shard_calls at the full-
+    width configuration (8,192 points, 3 layers of 2^18 slots, a 16-
+    keyframe window) against this process's single-process calls on the
+    same inputs: the LIO state and the refined windows at the golden
+    tolerances, n_effective equal, the map replicas bit for bit equal
+    after SHARD_MAP_UPDATES updates (and beside the single process's).
+    Then the same lio_update under NCCL with world size 1 in this
+    process, and a CUDA graph capture of the keyframe-sharded refine
+    under NCCL attempted (recorded, not required). Each call's ms and
+    collective bytes."""
+    import torch.distributed as dist
+
+    from fast_livo2_tpu_torch.parallel import sharding as shd
+
+    root = os.path.join(REPO, "build", "smoke_shard")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    data, map_cfg = shard_inputs(seq, root)
+    inputs_s = time.perf_counter() - t0
+    single, single_ms, _ = shard_calls(data, map_cfg, None)
+    addr = f"tcp://127.0.0.1:{_free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--shard-rank", addr, str(world), str(r), root],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, cwd=REPO) for r in range(world)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=600)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    ranks_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"sharded rank {r} failed:\n{errs[r][-3000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    got = ranks[0]["out"]
+    for r in ranks[1:]:
+        check(r["out"] == got, "the ranks returned different results: "
+              + str([k for k in got if r["out"][k] != got[k]]))
+    diffs = {}
+    state_diff = float(np.abs(np.array(got["lio_packed"])[:25]
+                              - single["lio_packed"][:25]).max())
+    check(state_diff <= POS_TOL_M and got["lio_n_eff"] == int(single["lio_n_eff"]),
+          f"sharded LIO vs one process: state {state_diff}, n_eff "
+          f"{got['lio_n_eff']} vs {single['lio_n_eff']}")
+    diffs["lio_state_max"] = state_diff
+    for name in ("refine", "refine_map"):
+        dp = float(np.abs(np.array(got[f"{name}_pos"]) - single[f"{name}_pos"]).max())
+        dR = float(np.abs(np.array(got[f"{name}_rot"]) - single[f"{name}_rot"]).max())
+        check(dp <= POS_TOL_M and dR <= ROT_TOL,
+              f"sharded {name} vs one process: {dp} m, {dR}")
+        diffs[f"{name}_pos_m"], diffs[f"{name}_rot"] = dp, dR
+    map_equal_single = all(got[f"map_{k}_sha256"] == single[f"map_{k}_sha256"]
+                           for k in ("keys", "stats", "rec"))
+
+    # NCCL, world size 1, in this process
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = shd.make_mesh(device="cuda")
+        nccl, nccl_ms, nccl_bytes = shard_calls(data, map_cfg, mesh)
+        nccl_diff = float(np.abs(nccl["lio_packed"][:25]
+                                 - single["lio_packed"][:25]).max())
+        check(nccl_diff <= POS_TOL_M and nccl["lio_n_eff"] == single["lio_n_eff"],
+              f"NCCL LIO vs one process: {nccl_diff}")
+        capture = nccl_refine_capture(data, map_cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "sharded", "world": world, "backend": "gloo",
+          "device": "cuda:0 (every rank)", "mesh": ranks[0]["mesh"],
+          "points": int(data["body"].shape[0]),
+          "map_slots": list(data["map_keys"].shape[:2]),
+          "window": list(data["w_scans"].shape[:2]),
+          "inputs_s": inputs_s, "ranks_wall_s": ranks_s,
+          "ms": {f"rank{r}": x["ms"] for r, x in enumerate(ranks)},
+          "single_ms": single_ms,
+          "collective_bytes_per_call": ranks[0]["collective_bytes"],
+          "map_replicas_bitwise_equal": True,
+          "map_equal_single_process": map_equal_single,
+          "map_voxels": got["map_count"], "lio_n_eff": got["lio_n_eff"],
+          "max_diff_vs_single": diffs, "pos_tol_m": POS_TOL_M,
+          "rot_tol": ROT_TOL, "nccl_world1_lio_diff": nccl_diff,
+          "nccl_world1_ms": nccl_ms, "nccl_world1_bytes_per_call": nccl_bytes,
+          "nccl_refine_capture": capture})
+
+
+def nccl_refine_capture(data, map_cfg, mesh):
+    """Whether refine_window(mesh=) under NCCL captures as a CUDA graph
+    (the OnlineRefiner runs it eagerly with a mesh): "ok" with the replay's
+    largest difference from the eager call, or the capture's error."""
+    from fast_livo2_tpu_torch.parallel import ba
+
+    window = ba.Window(*(torch.as_tensor(data[f"w_{k}"], device="cuda")
+                         for k in ba.Window._fields))
+    eager, _ = ba.refine_window(window, map_cfg, outer_iters=1, gn_iters=2,
+                                mesh=mesh)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on the capture's stream
+        ba.refine_window(window, map_cfg, outer_iters=1, gn_iters=2, mesh=mesh)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            out, _ = ba.refine_window(window, map_cfg, outer_iters=1,
+                                      gn_iters=2, mesh=mesh)
+        graph.replay()
+        torch.cuda.synchronize()
+        return {"result": "ok", "replay_vs_eager_pos_m":
+                float((out.pos - eager.pos).abs().max())}
+    except Exception as e:  # recorded: the capture is a question, not a gate
+        torch.cuda.synchronize()
+        return {"result": "error", "error": f"{type(e).__name__}: {e}"[:400]}
+
+
 def smooth_image(H, W, seed=0):
     """A smooth DN-scale (H, W) float32 image (a doubly integrated noise
     field scaled to 0-255)."""
@@ -1856,6 +2405,8 @@ def main(argv):
         emit({"package": os.path.dirname(fast_livo2_tpu_torch.__file__),
               "nvidia_smi": nvidia_smi(), **kernel_times()})
         return 0
+    if mode == "--shard-rank":
+        return shard_rank(argv[1:])
     if mode == "--make-long-indoor":
         os.nice(19)  # behind the card's phases on the host's cores
         make_long_indoor(argv[1])
@@ -1892,8 +2443,8 @@ def main(argv):
         free_device_memory()
         fused = {}
         for mode in ("only_lio", "livo"):
-            traj_f, traj_s, fused[mode] = phase_pipeline_fused(seq, mode)
-            phase_parity_fused(traj_f, traj_s, mode)
+            fused[mode] = phase_pipeline_fused(seq, mode)
+            phase_parity_fused(seq, mode)
             fused_frame = phase_profile_fused(seq, mode)
             free_device_memory()
         phase_stage_timing(seq)
@@ -1905,6 +2456,8 @@ def main(argv):
                   "batch": phase_batch(seq)}
         phase_resume_backend(seq)
         phases["backend"] = phase_backend(wait_long_indoor(long_indoor))
+        phases["rosbag"] = phase_rosbag(seq, len(traj))
+        phase_sharded(seq)
         # the fused LIVO path's run (tpu.fused_frame: the kernels launch
         # from its graph's replays), and K1's and K2's ms a replayed frame
         for k, name in ((k1, "cov_scan"), (k2, "photo_iteration")):

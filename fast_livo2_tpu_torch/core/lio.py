@@ -24,6 +24,13 @@ one of two forms over one body:
 Both forms give the JAX loop's state; on the same inputs they give the
 same bits (the same ops in the same order for every iteration that
 takes effect).
+
+Sharding (`mesh=`, parallel/sharding.py): pts_body / valid are this
+rank's slice of the measurement axis. The sums over points are
+all_reduced where the JAX package's partitioner puts its psums (HᵀR⁻¹H /
+HᵀR⁻¹z each iteration, the plane-cap histogram, n_effective and the
+residual sum), so every rank solves the same 19-dim system and takes the
+same convergence branch.
 """
 
 import functools
@@ -34,6 +41,7 @@ import torch
 
 from ..ops import so3
 from ..ops import voxel_hash as _vh
+from ..parallel import sharding as shd
 from .state import DIM_STATE, NavState, boxminus, boxplus, select
 from .voxel_map import PlaneMatch, VoxelMap, VoxelMapConfig, match_planes, quad6
 
@@ -136,6 +144,7 @@ def lio_update(
     fresh_every_iter: bool = False,
     plane_info_cap: int = 0,
     device_loop: bool = False,
+    mesh=None,
 ) -> LIOResult:
     """Iterated point-to-plane ESIKF update (StateEstimation,
     voxel_map.cpp:338-511). pts_body: (N, 3) undistorted, downsampled
@@ -146,7 +155,9 @@ def lio_update(
     every iteration (fresh_every_iter); other iterations reuse the
     carried plane fields and only re-evaluate distance and 3-sigma gate.
     `device_loop`: run every iteration masked, with no host read (see
-    the module docstring)."""
+    the module docstring). `mesh`: pts_body / valid are this rank's shard
+    of the points (see the module docstring); the returned match, pts_w
+    and var_w are this rank's rows, everything else is global."""
     f32 = cov_prop.dtype
     dev = cov_prop.device
     body_cov = calc_body_cov(pts_body, dept_err, beam_err)
@@ -220,12 +231,16 @@ def lio_update(
             h = _bucket_centers(ck).long()
             cnt = cov_prop.new_zeros((1 << 16) + 1).index_add_(
                 0, torch.where(use, h, 1 << 16), torch.ones_like(R_inv))
+            if mesh is not None:  # the global count of each plane
+                cnt = shd.all_reduce(cnt, mesh)
             R_inv = R_inv * torch.clamp(
                 plane_info_cap / torch.clamp(cnt[h], min=1.0), max=1.0)
 
         HR = H * R_inv[:, None]
         HTH6 = HR.T @ H
         HTz6 = HR.T @ z
+        if mesh is not None:
+            HTH6, HTz6 = shd.all_reduce_many((HTH6, HTz6), mesh)
         HTH = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
         HTH[0:6, 0:6] = HTH6
         K_1 = torch.linalg.inv_ex(HTH + P_inv).inverse
@@ -282,7 +297,9 @@ def lio_update(
              + crossmat @ cov_post[0:3, 0:3] @ crossmat_T + cov_post[3:6, 3:6])
     use = match.valid & valid
     n_eff = torch.sum(use.to(torch.int32))
-    mean_res = (torch.sum(torch.where(use, match.dist.abs(), 0.0))
-                / torch.clamp(n_eff.to(f32), min=1.0))
+    res_sum = torch.sum(torch.where(use, match.dist.abs(), 0.0))
+    if mesh is not None:
+        n_eff, res_sum = shd.all_reduce_many((n_eff, res_sum), mesh)
+    mean_res = res_sum / torch.clamp(n_eff.to(f32), min=1.0)
     return LIOResult(state=state, cov=cov_post, match=match, pts_w=pts_w,
                      var_w=var_w, n_effective=n_eff, mean_residual=mean_res)

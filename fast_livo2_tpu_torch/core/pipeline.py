@@ -78,6 +78,7 @@ from ..io import tsdf as tsdf_mod
 from ..models import camera as cam_mod
 from ..models import lidar as lidar_mod
 from ..ops import eig3, so3
+from ..parallel import sharding as shd
 from ..utils.config import LIVOConfig
 from . import imu as imu_mod
 from . import lio as lio_mod
@@ -1287,8 +1288,13 @@ class LIVOPipeline:
         gate: 0 = always on; > 0 = submit a window only when some
         keyframe's plane conditioning (the smallest eigenvalue of the
         normalized matched-normal second moment, FrameLog `plane_cond`,
-        in [0, 1/3]) fell below it. `mesh=` (keyframe sharding) is
-        ROADMAP.md Queue 1 item 16 and raises NotImplementedError."""
+        in [0, 1/3]) fell below it.
+        mesh: a parallel.sharding.Mesh to shard each window's keyframes
+        over (ba.refine_window(mesh=)). In this SPMD model every rank runs
+        the same frames in its own pipeline and only the refinement is
+        sharded: the refiner runs each window eagerly and every rank
+        takes the result at the same keyframe (ba.OnlineRefiner), and
+        rank 0's gate decision holds on every rank."""
         from ..parallel import ba
 
         self._refiner = ba.OnlineRefiner(
@@ -1375,7 +1381,8 @@ class LIVOPipeline:
         kfs = self._keyframes[-self.refine_window_size:]
         if self.refine_gate > 0.0:
             conds = self._kf_conds[-self.refine_window_size:]
-            if conds and min(conds) >= self.refine_gate:
+            if shd.agree(bool(conds) and min(conds) >= self.refine_gate,
+                         self._refiner.mesh):
                 # a healthy window: skip the backend (the check re-runs at
                 # every later keyframe, so degeneracy engages within one)
                 self.refine_gate_skips += 1
@@ -1442,7 +1449,10 @@ class LIVOPipeline:
         """Post-run sliding-window refinement of the last `max_keyframes`
         keyframes (set `keyframe_every` before the run), with the IMU
         links where the history has them and, with `photo` (default
-        refine_photo), the photometric factors. Returns [(t, R, p)]."""
+        refine_photo), the photometric factors. Returns [(t, R, p)].
+        mesh: a parallel.sharding.Mesh to shard the keyframes over
+        (ba.refine_window(mesh=)); every rank, having run the same frames,
+        calls this and gets every refined pose back."""
         from ..parallel import ba
 
         if not self._keyframes:

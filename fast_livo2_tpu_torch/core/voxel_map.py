@@ -41,6 +41,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..ops import eig3, voxel_hash
+from ..parallel import sharding as shd
 
 EMPTY = voxel_hash.EMPTY
 
@@ -428,7 +429,7 @@ def _layer_keys(pts, vsizes):
 
 def update_map(vmap_state: VoxelMap, pts_w: torch.Tensor, var_w: torch.Tensor,
                valid: torch.Tensor, cfg: VoxelMapConfig,
-               compact: bool = False) -> VoxelMap:
+               mesh=None, compact: bool = False) -> VoxelMap:
     """Insert a frame into every layer (the flat-layer equivalent of the
     octree's conditional subdivision). var_w: (N, 3, 3) or (N, 6) sym6
     point world covariances.
@@ -436,9 +437,23 @@ def update_map(vmap_state: VoxelMap, pts_w: torch.Tensor, var_w: torch.Tensor,
     Descent gating (cut_octo_tree, voxel_map.cpp:163-217): a point feeds
     layer l+1 only if its layer-l voxel exists, has enough points, and is
     not a solid plane, read from the PRE-insert state, so no layer's
-    insert depends on another's. The JAX package's `mesh=` argument
-    arrives with the sharding item (ROADMAP.md Queue 1 item 16)."""
+    insert depends on another's.
+
+    Sharding (`mesh=`, parallel/sharding.py): map reads (match_planes,
+    query_plane) take this rank's points against the replicated map, but
+    a write must see the same points on every rank (the claim rounds
+    mutate the table between probe rounds). So pts_w / var_w / valid are
+    this rank's shard, gathered (one all_reduce of (N, 10) floats) and
+    inserted on every rank, on a card under torch's deterministic
+    algorithms: the float scatter-adds then sum in one order, and the
+    replicas stay bit for bit equal frame after frame."""
     var_w6 = var_w if var_w.dim() == 2 else sym6(var_w)
+    if mesh is not None:
+        rows = shd.all_gather_rows(torch.cat(
+            [pts_w, var_w6, valid[:, None].to(pts_w.dtype)], dim=-1), mesh)
+        with shd.deterministic(rows.device):
+            return update_map(vmap_state, rows[:, 0:3], rows[:, 3:9],
+                              rows[:, 9] > 0.5, cfg, compact=compact)
     dev = pts_w.device
     vs = layer_voxel_sizes(cfg, dev)
     inits = layer_init_nums(cfg, dev)

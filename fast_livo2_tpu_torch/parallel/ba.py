@@ -24,8 +24,14 @@ card on its own CUDA stream, one captured CUDA graph per variant
 (plain / links / photo / links + photo) at the window's static shapes,
 with completion marked by an event; on the CPU eagerly.
 
-Keyframe sharding (the JAX package's `mesh=`) is ROADMAP.md Queue 1 item
-16 and raises NotImplementedError.
+Keyframe sharding (`mesh=`, parallel/sharding.py): every rank passes the
+whole window and runs Gauss-Newton on its contiguous slice of the K
+keyframes. Each map rebuild inserts every rank's world points (gathered
+by update_map(mesh=)); the IMU links' neighbour poses come from the full
+pose arrays, gathered after every sweep; photometric factors stay with
+their keyframe; the refined poses and n_used are gathered, so every rank
+returns the whole window. The map-sharded variant, which splits the map
+instead of the keyframes, is parallel/map_shard.py.
 """
 
 import time
@@ -40,9 +46,7 @@ from ..core.voxel_map import (VoxelMapConfig, make_map, match_planes, quad6,
 from ..models import camera as cam_mod
 from ..ops import image as img_ops
 from ..ops import so3
-
-_MESH_ITEM = ("keyframe sharding (mesh=) is not ported yet: ROADMAP.md "
-              "Queue 1 item 16")
+from . import sharding as shd
 
 
 class Window(NamedTuple):
@@ -211,6 +215,31 @@ def _link_terms(rot, pos, nbr):
     return HtH, Htz
 
 
+def _plane_terms(pts_w, pos, valid, body6, vmap_state,
+                 map_cfg: VoxelMapConfig):
+    """Every keyframe's point-to-plane normal equations against the plane
+    map: (HtH (K, 6, 6), Htz (K, 6), use (K, N)) of the world points
+    pts_w (K, N, 3) of poses with positions pos (K, 3); one match_planes
+    over the K x N points."""
+    K, N = valid.shape
+    valid_f = valid.reshape(K * N)
+    rel = (pts_w - pos[:, None, :]).reshape(K * N, 3)  # R p
+    pts_w = pts_w.reshape(K * N, 3)
+    # pose-uncertainty-free weighting for the batch pass
+    match = match_planes(vmap_state, pts_w, body6, valid_f, map_cfg)
+    use = match.valid & valid_f
+    n = match.normal
+    # r = n·(Exp(δθ) R p + t + δt) + d: dr/dδθ = ((R p) × n),
+    # dr/dδt = n (left/world-frame perturbation).
+    Jr = torch.cross(rel, n, dim=-1)
+    H = torch.cat([Jr, n], dim=-1).reshape(K, N, 6)
+    w = torch.where(use, 1.0 / (1e-3 + match.sigma_plane
+                                + quad6(body6, n)), 0.0).reshape(K, N)
+    HtH = torch.einsum("kni,kn,knj->kij", H, w, H)
+    Htz = torch.einsum("kni,kn,kn->ki", H, w, -match.dist.reshape(K, N))
+    return HtH, Htz, use.reshape(K, N)
+
+
 def _refine_poses(rot, pos, scans, valid, body6, vmap_state,
                   map_cfg: VoxelMapConfig, iters: int, nbr=None, photo=None,
                   photo_ctx=None):
@@ -220,26 +249,13 @@ def _refine_poses(rot, pos, scans, valid, body6, vmap_state,
     one batched 6 x 6 solve. nbr: the IMU-link neighbour coupling
     (_link_terms) with the neighbours held fixed. Returns (rot, pos,
     n_used (K,) of the last step)."""
-    K, N = valid.shape
-    valid_f = valid.reshape(K * N)
     eye6 = torch.eye(6, dtype=rot.dtype, device=rot.device) * 1e-6
     n_used = None
     for _ in range(iters):
         pts_w = scans @ rot.transpose(-1, -2) + pos[:, None, :]  # (K, N, 3)
-        rel = (pts_w - pos[:, None, :]).reshape(K * N, 3)  # R p
-        pts_w = pts_w.reshape(K * N, 3)
-        # pose-uncertainty-free weighting for the batch pass
-        match = match_planes(vmap_state, pts_w, body6, valid_f, map_cfg)
-        use = match.valid & valid_f
-        n = match.normal
-        # r = n·(Exp(δθ) R p + t + δt) + d: dr/dδθ = ((R p) × n),
-        # dr/dδt = n (left/world-frame perturbation).
-        Jr = torch.cross(rel, n, dim=-1)
-        H = torch.cat([Jr, n], dim=-1).reshape(K, N, 6)
-        w = torch.where(use, 1.0 / (1e-3 + match.sigma_plane
-                                    + quad6(body6, n)), 0.0).reshape(K, N)
-        HtH = torch.einsum("kni,kn,knj->kij", H, w, H) + eye6
-        Htz = torch.einsum("kni,kn,kn->ki", H, w, -match.dist.reshape(K, N))
+        HtH, Htz, use = _plane_terms(pts_w, pos, valid, body6, vmap_state,
+                                     map_cfg)
+        HtH = HtH + eye6
         if nbr is not None:
             HtH_l, Htz_l = _link_terms(rot, pos, nbr)
             HtH = HtH + HtH_l
@@ -251,7 +267,7 @@ def _refine_poses(rot, pos, scans, valid, body6, vmap_state,
         sol = torch.linalg.solve_ex(HtH, Htz[..., None]).result[..., 0]
         rot = so3.exp(sol[:, 0:3]) @ rot  # left perturbation (world frame)
         pos = pos + sol[:, 3:6]
-        n_used = torch.sum(use.reshape(K, N).to(torch.int32), dim=1)
+        n_used = torch.sum(use.to(torch.int32), dim=1)
     return rot, pos, n_used
 
 
@@ -274,26 +290,44 @@ def refine_window(window: Window, map_cfg: VoxelMapConfig,
     position (m) residual at dt = 1 s; weights scale as 1/(σ²·dt).
     photo: photometric pose factors (needs cam / Rci / Pci); photo_weight
     the per-pixel information (the VIO convention 1/img_point_cov).
-    No host read: the whole call can be captured as one CUDA graph."""
-    if mesh is not None:
-        raise NotImplementedError(f"refine_window: {_MESH_ITEM}")
+    mesh: a sharding.Mesh; every rank passes the whole window (and links
+    and factors) and gets the whole refined window back, having refined
+    its slice of the keyframes (K must divide by the mesh size; see the
+    module docstring).
+    Without a mesh there is no host read: the whole call can be captured
+    as one CUDA graph."""
     K, N, _ = window.scans.shape
     dev = window.pos.device
-    body6 = sym6(calc_body_cov(window.scans.reshape(K * N, 3), dept_err,
-                               beam_err))
-    valid_f = window.valid.reshape(K * N)
+    sl = shd.shard_rows(K, mesh) if mesh is not None else slice(None)
+    scans, valid = window.scans[sl], window.valid[sl]
+    Kl = scans.shape[0]
+    body6 = sym6(calc_body_cov(scans.reshape(Kl * N, 3), dept_err, beam_err))
+    valid_f = valid.reshape(Kl * N)
+    if photo is not None:
+        photo = PhotoFactors(*(x[sl] for x in photo))
     photo_ctx = ((cam, Rci, Pci, patch_size, photo_weight)
                  if photo is not None else None)
+
+    def whole(rot_l, pos_l):
+        """The full pose arrays from every rank's refined slice."""
+        if mesh is None:
+            return rot_l, pos_l
+        rp = shd.all_gather_rows(
+            torch.cat([rot_l.reshape(Kl, 9), pos_l], dim=-1), mesh)
+        return rp[:, 0:9].reshape(K, 3, 3), rp[:, 9:12]
+
     rot, pos = window.rot, window.pos
-    n_used = torch.zeros((K,), dtype=torch.int32, device=dev)
+    n_used = torch.zeros((Kl,), dtype=torch.int32, device=dev)
     for _ in range(outer_iters):
-        pts_w = (window.scans @ rot.transpose(-1, -2)
-                 + pos[:, None, :]).reshape(K * N, 3)
-        m = update_map(make_map(map_cfg, dev), pts_w, body6, valid_f, map_cfg)
+        pts_w = (scans @ rot[sl].transpose(-1, -2)
+                 + pos[sl][:, None, :]).reshape(Kl * N, 3)
+        m = update_map(make_map(map_cfg, dev), pts_w, body6, valid_f, map_cfg,
+                       mesh=mesh)
         if imu_links is None:
-            rot, pos, n_used = _refine_poses(
-                rot, pos, window.scans, window.valid, body6, m, map_cfg,
-                gn_iters, photo=photo, photo_ctx=photo_ctx)
+            rot_l, pos_l, n_used = _refine_poses(
+                rot[sl], pos[sl], scans, valid, body6, m, map_cfg, gn_iters,
+                photo=photo, photo_ctx=photo_ctx)
+            rot, pos = whole(rot_l, pos_l)
         else:
             L = imu_links
             dt_s = torch.clamp(L.dt, min=1e-3)
@@ -308,16 +342,23 @@ def refine_window(window: Window, map_cfg: VoxelMapConfig,
             w_rot = torch.where(ok_p, torch.roll(w_rot_k, 1, 0), w_rot_k)
             w_pos = torch.where(ok_p, torch.roll(w_pos_k, 1, 0), w_pos_k)
             for _ in range(link_sweeps):
-                # neighbour snapshots refresh each sweep
-                nbr = (torch.roll(rot, 1, 0), torch.roll(pos, 1, 0),
-                       torch.roll(L.dR, 1, 0), torch.roll(L.dp, 1, 0),
-                       torch.roll(dt_s, 1, 0), torch.roll(L.vel, 1, 0), ok_p,
-                       torch.roll(rot, -1, 0), torch.roll(pos, -1, 0),
-                       L.dR, L.dp, dt_s, L.vel, ok_n, L.grav, w_rot, w_pos)
-                rot, pos, n_used = _refine_poses(
-                    rot, pos, window.scans, window.valid, body6, m, map_cfg,
-                    gn_iters, nbr=nbr, photo=photo, photo_ctx=photo_ctx)
+                # neighbour snapshots refresh each sweep, from the whole
+                # window's poses; each rank takes its keyframes' rows
+                nbr = [x[sl] for x in (
+                    torch.roll(rot, 1, 0), torch.roll(pos, 1, 0),
+                    torch.roll(L.dR, 1, 0), torch.roll(L.dp, 1, 0),
+                    torch.roll(dt_s, 1, 0), torch.roll(L.vel, 1, 0), ok_p,
+                    torch.roll(rot, -1, 0), torch.roll(pos, -1, 0),
+                    L.dR, L.dp, dt_s, L.vel, ok_n)]
+                nbr += [L.grav, w_rot[sl], w_pos[sl]]
+                rot_l, pos_l, n_used = _refine_poses(
+                    rot[sl], pos[sl], scans, valid, body6, m, map_cfg,
+                    gn_iters, nbr=tuple(nbr), photo=photo,
+                    photo_ctx=photo_ctx)
+                rot, pos = whole(rot_l, pos_l)
         rot = so3.normalize_rotation(rot)
+    if mesh is not None:
+        n_used = shd.all_gather_rows(n_used, mesh)
     return window._replace(rot=rot, pos=pos), n_used
 
 
@@ -374,19 +415,27 @@ class OnlineRefiner:
     The refined poses come back through pinned host buffers copied on
     the refiner's stream. The submitted tensors are held until poll
     returns them, so that no stream reuses their memory while the other
-    reads it. On the CPU refine_window runs eagerly in submit."""
+    reads it. On the CPU refine_window runs eagerly in submit.
+
+    With a `mesh` (keyframe sharding; every rank submits the same
+    windows in the same order) the refinement runs eagerly on the
+    refiner's stream at every submit, never captured: gloo's collectives
+    cannot be captured in a CUDA graph, and under gloo each collective
+    waits on the host, so submit returns once the window is refined.
+    poll then waits for the refiner's stream, so that every rank takes
+    the result at the same poll and submits the next window at the same
+    keyframe."""
 
     def __init__(self, map_cfg: VoxelMapConfig, outer_iters: int = 2,
                  gn_iters: int = 2, dept_err: float = 0.02,
                  beam_err: float = 0.05, mesh=None, cam=None, Rci=None,
                  Pci=None, patch_size: int = 8, photo_weight: float = 0.01):
-        if mesh is not None:
-            raise NotImplementedError(f"OnlineRefiner: {_MESH_ITEM}")
         self.map_cfg = map_cfg
         self.outer_iters = outer_iters
         self.gn_iters = gn_iters
         self.dept_err = dept_err
         self.beam_err = beam_err
+        self.mesh = mesh
         self.photo_ctx = (dict(cam=cam, Rci=Rci, Pci=Pci,
                                patch_size=patch_size,
                                photo_weight=photo_weight)
@@ -406,7 +455,8 @@ class OnlineRefiner:
         refined, _ = refine_window(
             window, self.map_cfg, outer_iters=self.outer_iters,
             gn_iters=self.gn_iters, dept_err=self.dept_err,
-            beam_err=self.beam_err, imu_links=links, photo=photo, **kw)
+            beam_err=self.beam_err, mesh=self.mesh, imu_links=links,
+            photo=photo, **kw)
         return refined.rot, refined.pos
 
     def submit(self, window: Window, meta=None, links=None,
@@ -439,7 +489,7 @@ class OnlineRefiner:
         flat = _flatten(window, links, photo)
         variant = (links is not None, photo is not None)
         key = variant + tuple(tuple(t.shape) for t in flat)
-        g = self._graphs.get(key)
+        g = self._graphs.get(key) if self.mesh is None else None
         start, end, done = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event())
@@ -456,7 +506,7 @@ class OnlineRefiner:
             host = (_pinned_copy(rot), _pinned_copy(pos))
             done.record(stream)
         held = (flat, rot, pos)
-        if g is None:
+        if g is None and self.mesh is None:
             self._capture(key, variant, flat)
         return (*host, done, (start, end), held)
 
@@ -488,12 +538,12 @@ class OnlineRefiner:
     def poll(self, force: bool = False):
         """(meta, rot (K, 3, 3) np, pos (K, 3) np) once the refinement
         has completed; None while it runs (or when idle). force=True
-        waits for it (end of stream)."""
+        waits for it (end of stream), as does every poll with a mesh."""
         if self._pending is None:
             return None
         meta, rot, pos, done, events, _ = self._pending
         if done is not None:
-            if force:
+            if force or self.mesh is not None:
                 done.synchronize()
             elif not done.query():
                 return None

@@ -37,6 +37,7 @@ from fast_livo2_tpu_torch.models import camera as tcam
 from fast_livo2_tpu_torch.ops import image as img_ops
 from fast_livo2_tpu_torch.ops import so3
 from fast_livo2_tpu_torch.parallel import ba
+from fast_livo2_tpu_torch.parallel.sharding import Mesh
 from fast_livo2_tpu_torch.utils.config import CameraConfig
 from tests.test_torch_pipeline import one_torch_thread  # noqa: F401
 
@@ -209,7 +210,7 @@ def test_online_refiner_async_contract(case):
     """tests/test_ba.py's contract on the CPU: a submit is taken, a second
     one while the first is pending is refused, poll hands back the meta
     and the refined poses (refine_window's, bit for bit), a drained
-    refiner polls None and takes the next submit; mesh= raises."""
+    refiner polls None and takes the next submit; a mesh is kept."""
     w, links, photo, Rci, _, _ = case
     win = convert.window_from_numpy(*w, device="cpu")
     r = ba.OnlineRefiner(tvm.VoxelMapConfig(**MAP), outer_iters=1, gn_iters=1)
@@ -227,7 +228,9 @@ def test_online_refiner_async_contract(case):
     assert r.poll()[0] == "w2"  # the CPU refines inside submit
     with pytest.raises(ValueError, match="camera context"):
         r.submit(win, photo=convert.photo_from_numpy(*photo, device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        ba.OnlineRefiner(tvm.VoxelMapConfig(**MAP), mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        ba.refine_window(win, tvm.VoxelMapConfig(**MAP), mesh=object())
+    # keyframe sharding: the refiner keeps its mesh; K must divide over it
+    # (the sharded runs themselves: tests/test_torch_sharding.py)
+    mesh = Mesh(None, 0, 3, "kf", torch.device("cpu"))
+    assert ba.OnlineRefiner(tvm.VoxelMapConfig(**MAP), mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="does not divide over 3 ranks"):
+        ba.refine_window(win, tvm.VoxelMapConfig(**MAP), mesh=mesh)

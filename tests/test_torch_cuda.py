@@ -794,3 +794,64 @@ def test_fused_capture_with_a_host_read_raises():
         pipe.poll(max_frames=1, flush=True)
     assert len(pipe.trajectory) == frames
     assert not pipe._frame_graphs.graphs
+
+
+def _plane_pts(rng, n, normal, d, extent=4.0):
+    normal = np.asarray(normal, np.float64)
+    a = np.array([1.0, 0, 0]) if abs(normal[0]) < 0.9 else np.array([0, 1.0, 0])
+    b1 = np.cross(normal, a)
+    b1 /= np.linalg.norm(b1)
+    b2 = np.cross(normal, b1)
+    uv = rng.uniform(-extent, extent, size=(n, 2))
+    return (-d * normal + uv[:, :1] * b1 + uv[:, 1:] * b2
+            + rng.normal(size=(n, 3)) * 0.004).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_sharded_map_replicas_bitwise_equal_on_one_card(tmp_path):
+    """2 gloo ranks on cuda:0 (tests/test_torch_dist_worker.py): a map
+    write from sharded points, then ten in a row, leave both ranks' keys,
+    stats and rec bit for bit equal (update_map(mesh=) inserts under
+    deterministic algorithms), and equal to one process's updates under
+    the same mode; the measurement-sharded LIO update returns the same
+    bits on both ranks, within 1e-5 of one process's."""
+    _need_card()
+    import importlib.util
+
+    from fast_livo2_tpu_torch.parallel import sharding as shd
+
+    # by path: another installed package may own the name `tests`
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_dist_worker", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "test_torch_dist_worker.py"))
+    W = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(W)
+
+    rng = np.random.default_rng(0)
+    data = {"lio/scene": np.concatenate([
+        _plane_pts(rng, 4000, [0, 0, 1], 1.0), _plane_pts(rng, 4000, [1, 0, 0], -5.0),
+        _plane_pts(rng, 4000, [0, 1, 0], -5.0)]),
+        "lio/body": np.concatenate([_plane_pts(rng, 512, [0, 0, 1], 1.0),
+                                    _plane_pts(rng, 512, [1, 0, 0], -5.0)]),
+        "map/pts": rng.uniform(-4, 4, (1024, 3)).astype(np.float32)}
+    frames = np.stack([np.concatenate([
+        _plane_pts(rng, 512, [0, 0, 1], 1.0), _plane_pts(rng, 512, [1, 0, 0], -5.0)])
+        for _ in range(W.MAP_FRAMES)])
+    data["map/frames"] = frames
+    data["map/frames_valid"] = rng.uniform(size=frames.shape[:2]) > 0.1
+    var6 = np.zeros(frames.shape[:2] + (6,), np.float32)
+    var6[..., [0, 3, 5]] = rng.uniform(1e-5, 1e-3, frames.shape[:2] + (3,))
+    data["map/frames_var6"] = var6
+    np.savez(tmp_path / "inputs.npz", **data)
+    ranks = W.launch(tmp_path, 2, tmp_path / "inputs.npz", device="cuda",
+                     cases=("map_update", "lio"))
+    for k in ranks[0]:
+        if k.startswith(("map_update/", "lio/")):
+            np.testing.assert_array_equal(ranks[1][k], ranks[0][k], err_msg=k)
+    with shd.deterministic(torch.device("cuda")):
+        one = W.case_map_update(data, None, torch.device("cuda"))
+    for k, v in one.items():
+        np.testing.assert_array_equal(ranks[0][f"map_update/{k}"], v, err_msg=k)
+    lio = W.case_lio(data, None, torch.device("cuda"))
+    for k in ("split_packed", "loop_packed", "cap_packed"):
+        np.testing.assert_allclose(ranks[0][f"lio/{k}"], lio[k], atol=1e-5)

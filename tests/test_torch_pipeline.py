@@ -18,6 +18,7 @@ from fast_livo2_tpu.core.pipeline import LIVOPipeline as JaxPipeline
 from fast_livo2_tpu.utils.config import LIVOConfig as JaxConfig
 from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
 from fast_livo2_tpu_torch.io import synthetic
+from fast_livo2_tpu_torch.parallel.sharding import Mesh
 from fast_livo2_tpu_torch.utils.config import LIVOConfig
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "lio_traj.npz")
@@ -111,8 +112,7 @@ def test_points_wire_round_trip(wire_q16):
 
 def test_unported_modes_and_flags_raise():
     """Every flag and mode of the JAX package constructs and runs on the
-    port; what is still unported raises naming its ROADMAP.md item:
-    keyframe sharding (`mesh=`, Queue 1 item 16). An unknown mode is a
+    port, keyframe sharding (`mesh=`) included. An unknown mode is a
     ValueError."""
     from tests.test_torch_vio import livo_config
 
@@ -145,7 +145,8 @@ def test_unported_modes_and_flags_raise():
     pipe = LIVOPipeline(small_config(), slam_mode="only_lio", device="cpu")
     pipe.enable_online_refine()  # the backend is ported
     assert pipe.online_refine and pipe.keyframe_every == 10
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        pipe.enable_online_refine(mesh=object())
+    mesh = Mesh(None, 0, 1, "kf", torch.device("cpu"))  # keyframe sharding
+    pipe.enable_online_refine(mesh=mesh)
+    assert pipe._refiner.mesh is mesh
     with pytest.raises(ValueError):
         LIVOPipeline(small_config(), slam_mode="vio", device="cpu")
