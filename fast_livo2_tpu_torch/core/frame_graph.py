@@ -72,6 +72,7 @@ What a graph needs, and how this module provides it:
 import os
 import time
 import traceback
+import weakref
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -118,12 +119,21 @@ class FrameGraphs:
     graph per key (use_vio, defer_map, raycast)."""
 
     def __init__(self, pipe):
-        self.pipe = pipe
+        # Held weakly, so that a dropped pipeline is freed at once by
+        # reference counting and not by a later garbage collection, which
+        # could run inside another stream's capture: freeing the pinned
+        # host tensors the pipeline holds records CUDA events on the
+        # streams that used them, and that invalidates a capture.
+        self._pipe = weakref.ref(pipe)
         self.side = torch.cuda.Stream(pipe.device)
         self.graphs: Dict[tuple, Captured] = {}
         self._state = None  # {attribute: static value} (tensor or tuple)
         self._inputs = [None] * 4  # static imu, pts, image, frame id
         self.copy_back_bytes = 0
+
+    @property
+    def pipe(self):
+        return self._pipe()
 
     def _bind(self):
         """Make the pipeline's state the static buffers: adopt the current

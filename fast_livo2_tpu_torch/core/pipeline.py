@@ -80,6 +80,8 @@ from ..models import lidar as lidar_mod
 from ..ops import eig3, so3
 from ..parallel import sharding as shd
 from ..utils.config import LIVOConfig
+from ..utils.host_copy import host_copy, host_value
+from ..utils.timing import annotate
 from . import imu as imu_mod
 from . import lio as lio_mod
 from . import vio as vio_mod
@@ -251,7 +253,9 @@ class LIVOPipeline:
         self._effect_chunks: List[Tuple[float, ScanPoints]] = []
         self.mesh_seconds: Optional[dict] = None  # save_mesh's split
         self._last_slide_pos = np.zeros(3)
-        self._pos_snapshot = None  # position copy consumed at the next check
+        self.map_slides = 0  # slide_map calls so far (local_map.map_sliding_en)
+        self._pos_snapshot = None  # (host_copy of the position, consumed
+        # at the next check)
         # The sliding-window backend (parallel/ba.py). A keyframe is
         # (t, packed state copy, scan4 (kf_points, 4) [body xyz | valid],
         # photo factors or None, the state's host copy in flight).
@@ -303,6 +307,7 @@ class LIVOPipeline:
 
     # ---------- the per-frame step ----------
 
+    @annotate("propagate")
     def _stage_propagate(self, packed_sc, imu_pack):
         """IMU propagation (K1 inside): (state_prop, cov_prop, poses);
         imu_pack is the (K, 9) packed IMU intervals, or in only_lo mode
@@ -318,6 +323,7 @@ class LIVOPipeline:
             offs_end=imu_pack[:, 7], valid=imu_pack[:, 8])
         return imu_mod.propagate(state, cov, batch, self.noise)
 
+    @annotate("undistort")
     def _stage_undistort(self, state_prop, poses, imu_pack, pts_pack):
         """(undistorted points (N, 3), valid (N,)) of the points packet."""
         pts, t_offs, valid = self._unpack_pts(pts_pack)
@@ -327,11 +333,13 @@ class LIVOPipeline:
         return imu_mod.undistort(pts, t_offs, poses, state_prop, self.ext_R,
                                  self.ext_T), valid
 
+    @annotate("downsample")
     def _stage_downsample(self, und, valid):
         return lio_mod.voxel_downsample(und, valid,
                                         self.cfg.preprocess.filter_size_surf,
                                         self.cfg.tpu.max_points_down)
 
+    @annotate("lio")
     def _stage_lio(self, state_prop, cov_prop, vmap_state, down, down_valid,
                    device_loop: bool):
         """The iterated LIO update: (packed_sc, diag (6,), pg)."""
@@ -356,6 +364,7 @@ class LIVOPipeline:
         return (pack_state(res.state, res.cov), diag,
                 ScanPoints(res.pts_w, normal, var_w6, down_valid))
 
+    @annotate("map")
     def _insert(self, vmap_state, pg: ScanPoints):
         """The frame's map insert (a new map; the input is untouched)."""
         return vmap_mod.update_map(vmap_state, pg.pts_w, pg.var_w6, pg.valid,
@@ -398,6 +407,7 @@ class LIVOPipeline:
             vmap_state = self._insert(vmap_state, pg)
         return packed_sc, vmap_state, diag, pg
 
+    @annotate("vio")
     def _vio_half(self, packed_sc, img, pg: ScanPoints, fid, vmap_state,
                   device_loop: bool = False):
         """The VIO half of a LIVO frame on the u8 image `img` (H, W), frame
@@ -921,17 +931,19 @@ class LIVOPipeline:
                     (pg.pts_w, colors, visible, keep(self.packed[9:12])))
         # Map sliding: each check consumes the position snapshot taken at
         # the previous check (a 10-frame decision lag, harmless because
-        # crossing sliding_thresh takes many frames).
+        # crossing sliding_thresh takes many frames), a pinned host copy
+        # that has long landed when it is read: no host sync.
         if self.cfg.local_map.map_sliding_en and self.frame_id % 10 == 0:
             snap = self._pos_snapshot
-            self._pos_snapshot = self.packed[9:12].clone()
+            self._pos_snapshot = host_copy(self.packed[9:12])
             if snap is not None:
-                pos = snap.cpu().numpy()
+                pos = host_value(snap)
                 if (np.linalg.norm(pos - self._last_slide_pos)
                         > self.cfg.local_map.sliding_thresh):
                     self._last_slide_pos = pos
+                    self.map_slides += 1
                     self.vmap_state = vmap_mod.slide_map(
-                        self.vmap_state, snap,
+                        self.vmap_state, self._put(pos),
                         self.cfg.local_map.half_map_size, self.map_cfg)
         # One-ahead packet prefetch: the next event's upload overlaps this
         # frame's device work.
@@ -1233,7 +1245,7 @@ class LIVOPipeline:
             self._kf_conds.append(float(diag[5]))
         # (the host copy: the state's 25 floats, not its covariance)
         self._keyframes.append((t_ev, packed, scan4, photo,
-                                _host_copy(packed[0:25])))
+                                host_copy(packed[0:25])))
         if self.online_refine and self._refiner is not None:
             self._consume_refine()
             k = len(self._keyframes)
@@ -1473,21 +1485,6 @@ class LIVOPipeline:
         return [(kf[0], R_np[i], p_np[i]) for i, kf in enumerate(kfs)]
 
 
-def _host_copy(t: torch.Tensor):
-    """(host tensor, event or None): a copy of a device tensor queued to
-    pinned memory, its landing marked by an event; on the CPU a clone."""
-    if t.device.type != "cuda":
-        return t.clone(), None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record()
-    return host, ev
-
-
 def _host_state(kf) -> np.ndarray:
     """A keyframe's (25,) packed state on the host, from its copy."""
-    host, ev = kf[4]
-    if ev is not None:
-        ev.synchronize()
-    return host.numpy()
+    return host_value(kf[4])

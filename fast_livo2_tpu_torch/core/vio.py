@@ -31,12 +31,14 @@ the JAX package:
   pool tensor.
 
 In place, where JAX donated: `ring_insert` writes the ring and the
-pool's valid/ref columns, and `generate_and_maintain` scatters the
-frame's rows into the pool tensors it is given; both return the same
-tensors. Every other function leaves its inputs untouched. The frame id
-is a 0-d int32 tensor on the frame's device (a Python int is accepted
-and converted), as the JAX package passes it: a captured CUDA graph
-(core/frame_graph.py) reads it from a buffer instead of baking it in.
+pool's valid/ref columns, and `generate_and_maintain` (and its
+standalone parts `generate_points`, `update_obs`, `update_reference`,
+`maintain_points`) scatters the frame's rows into the pool tensors it is
+given; each returns the same tensors. Every other function leaves its
+inputs untouched. The frame id is a 0-d int32 tensor on the frame's
+device (a Python int is accepted and converted), as the JAX package
+passes it: a captured CUDA graph (core/frame_graph.py) reads it from a
+buffer instead of baking it in.
 
 Tie-breaks follow jnp.argmin/argmax, which return the first index, as
 torch.argmin/argmax document; the scatter-min/max of `_cell_argbest`
@@ -965,6 +967,94 @@ def _update_reference_rows(point_rows, obs_rows, patches,
     return point_rows, obs_rows
 
 
+def _write_rows(pool: VisualPool, idx, point_rows, obs_rows,
+                patch_rows=None):
+    """Scatter rows into the pool tensors in place at `idx` (P, the sink
+    row, for a dropped row)."""
+    idx = idx.long()
+    pool.point[idx] = point_rows
+    pool.obs[idx] = obs_rows
+    if patch_rows is not None:
+        pool.obs_patch[idx] = patch_rows
+
+
+def generate_points(pool: VisualPool, img, pg_w, pg_normal, pg_var6,
+                    pg_valid, cell_occupied, state: NavState,
+                    cam: cam_mod.Camera, Rci, Pci, frame_id, frame_slot,
+                    cfg: VIOConfig):
+    """Standalone new-point generation (row core + scatter, in place);
+    vio_step runs the fused generate_and_maintain instead. Allocation
+    wraps the pool (the oldest slots are recycled). pg_var6: (N, 6) sym6
+    point covariances; cell_occupied: (M,) grid cells already tracked.
+    Returns (pool, n_added ())."""
+    slot, point_rows, obs_rows, patch_rows, n_added = _generate_rows(
+        pool.alloc, img, pg_w, pg_normal, pg_var6, pg_valid, cell_occupied,
+        state, cam, Rci, Pci, _frame_index(frame_id, img.device),
+        _frame_index(frame_slot, img.device), cfg)
+    _write_rows(pool, slot, point_rows, obs_rows, patch_rows)
+    return pool._replace(alloc=pool.alloc + n_added.to(torch.float32)), n_added
+
+
+def update_obs(pool: VisualPool, submap: Submap, img, state: NavState,
+               cam: cam_mod.Camera, Rci, Pci, frame_id, frame_slot,
+               cfg: VIOConfig):
+    """Standalone observation update (core + scatter of the submap's
+    rows, in place); vio_step runs the fused form instead. Returns
+    (pool, update_flag (M,))."""
+    point_rows, obs_rows, patches, add = _update_obs_rows(
+        submap.point_rows, submap.obs_rows, submap.patch_rows, submap, img,
+        state, cam, Rci, Pci, _frame_index(frame_id, img.device),
+        _frame_index(frame_slot, img.device), cfg)
+    wp = torch.where(submap.valid, submap.point_idx, cfg.pool_capacity)
+    _write_rows(pool, wp, point_rows, obs_rows, patches)
+    return pool, add
+
+
+def update_reference(pool: VisualPool, vmap_state: VoxelMap,
+                     map_cfg: VoxelMapConfig, submap: Submap,
+                     updated: torch.Tensor, cfg: VIOConfig):
+    """Standalone reference refinement (core + scatter of the submap's
+    point and observation rows, in place); vio_step runs the fused form
+    instead. updated: (M,) the observation update's flags. Returns the
+    pool."""
+    point_rows, obs_rows = _update_reference_rows(
+        submap.point_rows, submap.obs_rows, submap.patch_rows, vmap_state,
+        map_cfg, submap, updated, cfg)
+    wl = torch.where(submap.valid, submap.point_idx, cfg.pool_capacity)
+    _write_rows(pool, wl, point_rows, obs_rows)
+    return pool
+
+
+def _maintained_rows(submap: Submap, img, state: NavState,
+                     cam: cam_mod.Camera, Rci, Pci, frame_id, frame_slot,
+                     vmap_state: VoxelMap, map_cfg: VoxelMapConfig,
+                     cfg: VIOConfig):
+    """The observation update then the reference refinement on the same
+    gathered rows: (point_rows, obs_rows, patches, update_flag)."""
+    point_m, obs_m, patch_m, add = _update_obs_rows(
+        submap.point_rows, submap.obs_rows, submap.patch_rows, submap, img,
+        state, cam, Rci, Pci, frame_id, frame_slot, cfg)
+    point_m, obs_m = _update_reference_rows(
+        point_m, obs_m, patch_m, vmap_state, map_cfg, submap, add, cfg)
+    return point_m, obs_m, patch_m, add
+
+
+def maintain_points(pool: VisualPool, vmap_state: VoxelMap,
+                    map_cfg: VoxelMapConfig, submap: Submap, img,
+                    state: NavState, cam: cam_mod.Camera, Rci, Pci,
+                    frame_id, frame_slot, cfg: VIOConfig):
+    """Observation update + reference refinement on the same pool rows
+    (submap.point_idx), gathered once and scattered once, in place.
+    Returns (pool, update_flag (M,))."""
+    point_m, obs_m, patch_m, add = _maintained_rows(
+        submap, img, state, cam, Rci, Pci,
+        _frame_index(frame_id, img.device),
+        _frame_index(frame_slot, img.device), vmap_state, map_cfg, cfg)
+    wp = torch.where(submap.valid, submap.point_idx, cfg.pool_capacity)
+    _write_rows(pool, wp, point_m, obs_m, patch_m)
+    return pool, add
+
+
 def generate_and_maintain(pool: VisualPool, vmap_state: VoxelMap,
                           map_cfg: VoxelMapConfig, submap: Submap, img,
                           pg_w, pg_normal, pg_var6, pg_valid,
@@ -980,21 +1070,17 @@ def generate_and_maintain(pool: VisualPool, vmap_state: VoxelMap,
     pidx = submap.point_idx
     frame_id = _frame_index(frame_id, img.device)
     frame_slot = _frame_index(frame_slot, img.device)
-    point_m, obs_m, patch_m, add = _update_obs_rows(
-        submap.point_rows, submap.obs_rows, submap.patch_rows, submap, img,
-        state, cam, Rci, Pci, frame_id, frame_slot, cfg)
-    point_m, obs_m = _update_reference_rows(
-        point_m, obs_m, patch_m, vmap_state, map_cfg, submap, add, cfg)
+    point_m, obs_m, patch_m, add = _maintained_rows(
+        submap, img, state, cam, Rci, Pci, frame_id, frame_slot, vmap_state,
+        map_cfg, cfg)
     slot_g, point_g, obs_g, patch_g, n_added = _generate_rows(
         pool.alloc, img, pg_w, pg_normal, pg_var6, pg_valid, submap.valid,
         state, cam, Rci, Pci, frame_id, frame_slot, cfg)
     wp = torch.where(submap.valid, pidx, P)
     collide = torch.any(wp[:, None] == slot_g[None, :], dim=1)
     wp = torch.where(collide, P, wp)
-    idx = torch.cat([wp, slot_g]).long()
-    pool.point[idx] = torch.cat([point_m, point_g])
-    pool.obs[idx] = torch.cat([obs_m, obs_g])
-    pool.obs_patch[idx] = torch.cat([patch_m, patch_g])
+    _write_rows(pool, torch.cat([wp, slot_g]), torch.cat([point_m, point_g]),
+                torch.cat([obs_m, obs_g]), torch.cat([patch_m, patch_g]))
     pool = pool._replace(alloc=pool.alloc + n_added.to(torch.float32))
     return pool, add, n_added
 

@@ -122,12 +122,16 @@ def make_map(cfg: VoxelMapConfig, device="cuda") -> VoxelMap:
 
 @functools.lru_cache(maxsize=None)
 def _const(values: tuple, dtype, device: str) -> torch.Tensor:
-    """A small constant tensor, uploaded once per (values, device): a
-    fresh torch.tensor(..., device="cuda") per call would be a blocking
-    host-to-device copy, i.e. a host sync, on every map operation.
-    Callers never write to it, and it is never freed: a captured CUDA
-    graph (core/frame_graph.py) reads it by address."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    """A small constant tensor, uploaded once per (values, device), from
+    pinned memory without blocking: torch.tensor(..., device="cuda") is
+    a blocking host-to-device copy, i.e. a host sync (the first map slide
+    of a run made one inside a fused run's frame). Callers never write to
+    it, and it is never freed: a captured CUDA graph
+    (core/frame_graph.py) reads it by address."""
+    t = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def layer_voxel_sizes(cfg: VoxelMapConfig, device) -> torch.Tensor:

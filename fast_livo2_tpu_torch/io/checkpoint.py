@@ -41,6 +41,7 @@ import torch
 
 from ..core import imu as imu_mod
 from ..core.voxel_map import VoxelMap
+from ..utils.host_copy import host_value, landed_copy
 from . import convert
 
 FORMAT = "fast_livo2_tpu_torch"
@@ -87,7 +88,7 @@ def save(path: str, pipeline) -> None:
     # map sliding's decision state (the snapshot lags one check)
     arrays["last_slide_pos"] = np.asarray(pipeline._last_slide_pos)
     if pipeline._pos_snapshot is not None:
-        arrays["pos_snapshot"] = pipeline._pos_snapshot.cpu().numpy()
+        arrays["pos_snapshot"] = host_value(pipeline._pos_snapshot)
     # the streaming ingestion state, in the JAX package's array names
     arrays.update(stream_imu_t=pipeline._imu_t,
                   stream_imu_gyr=pipeline._imu_gyr,
@@ -204,12 +205,12 @@ def restore(pipeline, meta: dict, a: dict, packed, vmap: Sequence,
     if "last_slide_pos" in a:
         pipeline._last_slide_pos = a["last_slide_pos"]
     if "pos_snapshot" in a:
-        pipeline._pos_snapshot = pipeline._put(a["pos_snapshot"])
+        pipeline._pos_snapshot = landed_copy(a["pos_snapshot"])
     if "kf_t" in a:
         # (t, packed, scan4, no photo, the host copy of the state)
         pipeline._keyframes = [
             (float(t), convert._put(p, dev), convert._put(sc, dev), None,
-             (torch.from_numpy(np.array(p[0:25], np.float32)), None))
+             landed_copy(np.array(p[0:25], np.float32)))
             for t, p, sc in zip(a["kf_t"], a["kf_packed"], a["kf_scan"])]
         pipeline._last_refine_k = int(meta.get("last_refine_k", 0))
     if "kf_imu_t" in a:

@@ -58,27 +58,35 @@ def _ray_offsets(trunc: float, n_samp: int) -> np.ndarray:
     return np.append(lo * (np.float32(1.0) - step) + hi * step, hi).astype(np.float32)
 
 
+def ray_samples(vol: TSDFVolume, pts_w: torch.Tensor,
+                sensor_pos: torch.Tensor, n_samp: int):
+    """Each point's n_samp samples along its ray within +-trunc of the
+    surface: (their positions in voxel units from the volume's origin
+    (N, n_samp, 3), their projective SDF (N, n_samp))."""
+    ray = pts_w - sensor_pos
+    dist = torch.sqrt(torch.sum(ray * ray, dim=-1, keepdim=True))
+    dirn = ray / torch.clamp(dist, min=1e-6)
+    # sample offsets along the ray in [-trunc, +trunc] (behind the surface
+    # = inside = negative sdf)
+    offs = torch.from_numpy(_ray_offsets(vol.trunc, n_samp)).to(pts_w.device)
+    samp = pts_w[:, None, :] + dirn[:, None, :] * offs[None, :, None]
+    sdf = -offs / vol.trunc  # +1 in front (towards sensor), -1 behind
+    return (samp - vol.origin) / vol.voxel, sdf[None, :].expand(samp.shape[:2])
+
+
 def integrate(vol: TSDFVolume, pts_w: torch.Tensor, valid: torch.Tensor,
               sensor_pos: torch.Tensor, samples_inside: int = 3,
               samples_outside: int = 3) -> TSDFVolume:
     """Fuse one cloud: for each point, update voxels along the ray within
     +-trunc of the surface with the projective SDF (distance along the ray
     to the measured point), weight-averaged (KinectFusion rule), the
-    weight capped at 64."""
+    weight capped at 64. A sample lands in the voxel floor(its position in
+    voxel units)."""
     grid = vol.tsdf.shape[0]
     dev = vol.tsdf.device
-    n_samp = samples_inside + samples_outside + 1
-    ray = pts_w - sensor_pos
-    dist = torch.sqrt(torch.sum(ray * ray, dim=-1, keepdim=True))
-    dirn = ray / torch.clamp(dist, min=1e-6)
-    # sample offsets along the ray in [-trunc, +trunc] (behind the surface
-    # = inside = negative sdf)
-    offs = torch.from_numpy(_ray_offsets(vol.trunc, n_samp)).to(dev)
-    samp = pts_w[:, None, :] + dirn[:, None, :] * offs[None, :, None]
-    sdf = -offs / vol.trunc  # +1 in front (towards sensor), -1 behind
-    sdf = sdf[None, :].expand(samp.shape[:2])
-
-    idx = torch.floor((samp - vol.origin) / vol.voxel).to(torch.int32)
+    u, sdf = ray_samples(vol, pts_w, sensor_pos,
+                         samples_inside + samples_outside + 1)
+    idx = torch.floor(u).to(torch.int32)
     inb = torch.all((idx >= 0) & (idx < grid), dim=-1) & valid[:, None]
     g3 = grid * grid * grid
     flat = torch.where(

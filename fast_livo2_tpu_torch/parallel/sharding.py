@@ -152,6 +152,16 @@ def put_replicated(tree, mesh: Mesh):
     return _tree(lambda x: replicated(x, mesh), tree)
 
 
+def put_sharded(tree, mesh: Mesh):
+    """Every tensor of `tree` placed on the mesh: a tensor with a leading
+    axis is split over the ranks along it (`shard_points`; the axis must
+    divide by the mesh size), a 0-d tensor is rank 0's value on every rank
+    (`put_replicated`). The counterpart of the JAX package's
+    put_sharded(tree, shard_points(mesh))."""
+    return _tree(lambda x: (put_replicated(x, mesh) if x.dim() == 0
+                            else shard_points(x, mesh)), tree)
+
+
 def agree(flag: bool, mesh: Optional[Mesh]) -> bool:
     """Rank 0's host decision on every rank (one broadcast), for a branch
     that enters collectives: a branch read from a rank's own float state

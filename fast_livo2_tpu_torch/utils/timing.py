@@ -1,17 +1,21 @@
 """Per-frame stage timing: `StageClock` times a frame's stages
 (tpu.stage_timing) and `StageTable` renders the tables (the PyTorch
-port's own copy of `StageTable` from fast_livo2_tpu/utils/timing.py).
+port's own copy of `StageTable` from fast_livo2_tpu/utils/timing.py);
+`device_trace` and `annotate` are the profiler hooks.
 
 The reference prints per-frame ANSI box tables of stage wall-times
 (LIO: DownSample/ICP/updateVoxelMap, LIVMapper.cpp:465-476; VIO stage
 table, vio.cpp:1851-1868) with running averages. `StageTable` collects
 rows (`mark`, `end_frame`) and renders the same style of table on
 demand. The JAX module's `stage` timer and `averages` have no caller
-here and are left out; its `device_trace` and `annotate` wrap
-jax.profiler, and `torch.profiler` takes their place where a trace is
-wanted (chip_smoke.py's profile phases).
+here and are left out. Its `device_trace` and `annotate` wrap
+jax.profiler; here they wrap torch.profiler (and NVTX on a card), and
+the pipeline's six stages (`STAGES`) run inside `annotate` ranges, so a
+trace of a split or staged frame shows them by name.
 """
 
+import contextlib
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -92,3 +96,32 @@ class StageTable:
         out += [bar, f"| {'Total':29} | {total_avg:12.2f} | "
                      f"{sum(rows[-1].values()) * 1e3:12.2f} |", bar]
         return "\n".join(out)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Profile a block with torch.profiler (CPU activity, and CUDA
+    activity when a card is available) and write its Chrome trace into
+    `log_dir` as trace.json. Yields the profiler, whose key_averages()
+    the caller may read after the block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named range inside a device trace: a torch.profiler
+    record_function, inside an NVTX range when CUDA is available. Both
+    are host calls: inside a CUDA graph capture they record nothing into
+    the graph, so a replayed frame shows no stage ranges."""
+    nvtx = (torch.cuda.nvtx.range(name) if torch.cuda.is_available()
+            else contextlib.nullcontext())
+    with nvtx, torch.profiler.record_function(name):
+        yield

@@ -855,3 +855,122 @@ def test_sharded_map_replicas_bitwise_equal_on_one_card(tmp_path):
     lio = W.case_lio(data, None, torch.device("cuda"))
     for k in ("split_packed", "loop_packed", "cap_packed"):
         np.testing.assert_allclose(ranks[0][f"lio/{k}"], lio[k], atol=1e-5)
+
+
+def _deterministic():
+    """torch's deterministic algorithms (the downsample's and the map's
+    float scatter-adds in one order), restored by the returned callable."""
+    was = torch.are_deterministic_algorithms_enabled()
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    return lambda: torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.cuda
+def test_fused_ring_wraps_like_split():
+    """A fused LIVO run with an 8-frame ring and a 2,048-point pool over
+    30 frames: the ring slot and the frame id a replay writes come from
+    the frame-id buffer, not from the capture, so after every wrap the
+    ring's ids equal the split run's, as do the pool's cursor and rows
+    (deterministic algorithms); a replayed frame makes no host sync."""
+    _need_card()
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    restore = _deterministic()
+    try:
+        pipes = {}
+        for fused in (False, True):
+            cfg, seq = _small_livo(3.2, fused_frame=fused, frame_ring=8,
+                                   vis_point_capacity=2048)
+            pipes[fused] = LIVOPipeline(cfg, "livo", device="cuda")
+            pipes[fused].push_sequence(seq)
+        split, fused = pipes[False], pipes[True]
+        wraps = 0
+        while fused._img_queue:
+            replay = bool(fused._frame_graphs.graphs)
+            if replay:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                n = fused.poll(max_frames=1, flush=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert split.poll(max_frames=1, flush=True) == n
+            assert torch.equal(fused.ring.ids, split.ring.ids)
+            if fused.frame_id % 8 == 1 and fused.frame_id > 8:
+                wraps += 1  # this frame wrote slot 0 again
+                assert int(fused.ring.ids[0]) == fused.frame_id - 1
+            for a, b in zip(fused.pool, split.pool):
+                assert torch.equal(a, b)
+        assert fused.frame_id >= 24 and wraps >= 2
+        assert list(fused._frame_graphs.graphs) == [(True, True, False)]
+    finally:
+        restore()
+
+
+@pytest.mark.cuda
+def test_fused_only_lio_slides_bit_for_bit_split():
+    """The soak's ONLY_LIO configuration (map sliding at 1 m) over 5 s:
+    at least three slides replace the map between replays, and the fused
+    run is bit for bit its split run frame by frame (deterministic
+    algorithms), with no host sync in any replayed frame, the slide
+    frames included (the slide decision reads a pinned copy queued ten
+    frames earlier; the first slide's constants upload without blocking,
+    and this is the process's first slide of a 30-voxel half map)."""
+    _need_card()
+    from fast_livo2_tpu_torch import soak
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    seq = soak.soak_sequence(5.0, "only_lio", soak.soak_config())
+    restore = _deterministic()
+    try:
+        split = LIVOPipeline(soak.soak_config(), "only_lio", device="cuda")
+        fused = LIVOPipeline(soak.soak_config(fused=True), "only_lio",
+                             device="cuda")
+        for p in (split, fused):
+            p.push_sequence(seq)
+        while fused._scan_events:
+            if fused._frame_graphs.graphs:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                n = fused.poll(max_frames=1, flush=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert split.poll(max_frames=1, flush=True) == n
+            for a, b in zip((fused.packed, *fused.vmap_state),
+                            (split.packed, *split.vmap_state)):
+                assert torch.equal(a, b)
+        assert fused.map_slides == split.map_slides >= 3
+        assert len(fused._frame_graphs.graphs) == 1
+    finally:
+        restore()
+
+
+@pytest.mark.cuda
+def test_fused_pipeline_is_freed_without_gc():
+    """A fused pipeline with map sliding (it holds a pinned host copy of
+    its position) is freed by reference counting when dropped, its graphs
+    with it: a garbage collection that freed it later could run inside
+    another stream's CUDA graph capture, where freeing pinned memory
+    records events that invalidate the capture."""
+    _need_card()
+    import gc
+    import weakref
+
+    from fast_livo2_tpu_torch import soak
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    cfg = soak.soak_config(fused=True)
+    pipe = LIVOPipeline(cfg, "only_lio", device="cuda")
+    pipe.process(soak.soak_sequence(2.1, "only_lio", cfg))
+    assert pipe._frame_graphs.graphs and pipe._pos_snapshot is not None
+    ref = weakref.ref(pipe)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del pipe
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()
