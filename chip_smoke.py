@@ -4,8 +4,9 @@ run through the CLI, with its outputs and checkpoint/resume, in split,
 fused and staged frames; the VIO extras; the sliding-window backend and
 multi-stream replay; a ROS bag converted and run; sharding over
 torch.distributed; the hard scene, the capacity-cycling soak, the outdoor
-map-sliding flight and the dense scan; the tools) on one NVIDIA GPU and
-hold every hand-written kernel against its plain PyTorch version.
+map-sliding flight and the dense scan; the tools; the four shipped sensor
+rigs from their recordings) on one NVIDIA GPU and hold every hand-written
+kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -29,6 +30,10 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     and without distortion; bitwise the same over 20
                     calls and across calls at another M (the last-block
                     ticket is reset); one device kernel a call; timed;
+                    then at each pinhole rig's processed camera and
+                    tracked slots (640 x 512 M 396, 752 x 480 M 486 in
+                    the above-448 sampling, 612 x 512 M 378), each
+                    timed and bounded;
   4b. side_stream   the three wrappers once on a side stream
                     (torch.cuda.stream(s)) against their plain versions,
                     and the raw stream the launch path reads equal to
@@ -170,14 +175,27 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     volume against the CPU's), `export_planes` (the CLI
                     on run_cli's checkpoint; a fused run's map: planes =
                     _ISPL rows), `fleet_scaling` B = 1, 2, 4.
-                    The sequences of 26 and 29-32 are built one after
-                    another by one child process (`chip_smoke.py
-                    --make-sequences DIR`, nice 19) and cached as npz
-                    under build/.
+  34. rig_avia, rig_ntu_viral, rig_hilti22, rig_mars_lvig: the four
+                    shipped config pairs (configs/), each from its own
+                    recording at its published width (RIGS: the camera
+                    at the camera yaml's full resolution, the LiDAR's
+                    points a scan in its own frame, the yaml's time
+                    offsets; a ROS bag on the yaml's topics but for
+                    mars_lvig) through `convert_rosbag` and the CLI with
+                    the yamls as shipped: split and fused, then the same
+                    pair under deterministic algorithms; ATE or drift
+                    gates, tracked points, fused vs split (0.0 m
+                    deterministic), 0 syncs in a replay, K1 once a frame,
+                    K2 20 / 15 / 0 / 20 a fused VIO frame; bag bytes,
+                    convert s, capture s, graph pool bytes, medians.
+                    The sequences of 26, 29-32 and the rigs' recordings
+                    are built one after another by one child process
+                    (`chip_smoke.py --make-sequences DIR`, nice 19) and
+                    cached under build/.
 
 Then the `kernels` line (K1's and K2's launches on the split LIVO path
 and, as `launches_fused`, on the fused one; `launches_phases`, those of
-phases 22-32), the card's name and power
+phases 22-34), the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Any failed
 phase exits non-zero before that line; there is no CPU fallback.
 Imports nothing of JAX. Every
@@ -208,6 +226,7 @@ process.
 import contextlib
 import copy
 import datetime
+import functools
 import gc
 import hashlib
 import io
@@ -480,15 +499,20 @@ def phase_kernel():
     return row
 
 
-def k2_inputs(img, with_dist, seed=7, M=M_MAIN):
+def k2_inputs(img, with_dist, seed=7, M=M_MAIN, cam=None):
     """M points spread over the frame 1.5-8 m ahead of the camera, stride
     exponents 0-5, about 10 % masked out, the camera pose at the origin
-    and the forward mount's Jacobian blocks."""
+    and the forward mount's Jacobian blocks. The camera: camera_config()'s
+    (radtan coefficients if `with_dist`), or `cam` with its own."""
     from fast_livo2_tpu_torch.io import synthetic
     from fast_livo2_tpu_torch.models import camera
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
-    cam = camera.make_camera(camera_config())
+    if cam is None:
+        cam = camera.make_camera(camera_config())
+        dist = [0.02, -0.01, 0.001, -0.002] if with_dist else [0.0] * 4
+    else:
+        dist = list(cam.d)
     rng = np.random.default_rng(seed)
     z = rng.uniform(1.5, 8.0, M)
     uv = rng.uniform([-0.75, -0.6], [0.75, 0.6], size=(M, 2))
@@ -500,11 +524,10 @@ def k2_inputs(img, with_dist, seed=7, M=M_MAIN):
     meta, refp = photo.pack_points(*(torch.from_numpy(a).to(dev)
                                      for a in (pos, ref, slog, ok)))
     Rci = torch.from_numpy(synthetic.R_CI_FORWARD.astype(np.float32)).to(dev)
-    dist = [0.02, -0.01, 0.001, -0.002] if with_dist else [0.0] * 4
     par = photo.pack_params(torch.eye(3, device=dev), torch.zeros(3, device=dev),
                             torch.tensor(1.05, device=dev), Rci, 0.0 * Rci,
                             cam.fx, cam.fy, cam.cx, cam.cy, dist, 1.0,
-                            1.0 if with_dist else 0.0)
+                            1.0 if any(dist) else 0.0)
     return img, meta, refp, par
 
 
@@ -567,14 +590,9 @@ def phase_kernel_photo(seq):
     t = one_kernel_timings(lambda: photo.photo_iteration(*args),
                            "photo_iteration_kernel", "K2")
     plain_ms = time_cuda(lambda: photo.photo_iteration_plain(*args), calls=20)
-    # Least time: the distinct image taps the windows read, the point
-    # inputs and the parameter row read once, the 64-float output written
-    # once; FP32 operations as counted at FLOP_PER_*.
     M = args[1].shape[0]
-    taps = int(torch.unique(photo.window_taps(img.shape, args[1], args[3])).numel())
-    nbytes = (taps + M * (photo.META_W + 64) + photo.PAR_W + photo.OUT_W) * 4
-    flops = M * (64 * FLOP_PER_PIXEL + FLOP_PER_POINT) + M * photo.OUT_W
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by, taps, nbytes, flops = k2_bound(img, args[1], args[3],
+                                                       False)
     row = {"name": "photo_iteration.photo_iteration", "route": "cuda",
            "source": "fast_livo2_tpu_torch/csrc/photo_iteration.cu",
            "replaces": "fast_livo2_tpu/ops/pallas_photo.py:204",
@@ -584,6 +602,10 @@ def phase_kernel_photo(seq):
            # bilinear sampling, Jacobian chain and 7 x 7 reduction.
            "library_ms": None, "device_ms": t["device_ms"],
            "host_us": t["host_us"]}
+    rigs = k2_rig_shapes()
+    row["rig_shapes"] = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "max_abs_err")}
+                         for k, v in rigs.items()}
     emit({"phase": "kernel_photo", "M": M, "H": int(img.shape[0]),
           "W": int(img.shape[1]), "slog_max": 5,
           "max_scale_log2": photo.clamp_scale_log2(int(img.shape[1])),
@@ -591,8 +613,60 @@ def phase_kernel_photo(seq):
           "max_err_over_block_max": max_rel_err, "M_sweep": list(K2_SWEEP),
           "sweep_max_err_over_block_max": sweep_err,
           "bitwise_repeats": K2_REPEATS, "distinct_taps": taps,
-          "bytes": nbytes, "flops": flops, **t, **row})
+          "bytes": nbytes, "flops": flops, **t, **row, "rig_shapes": rigs})
     return row, img
+
+
+def k2_bound(img, meta, par, clip_taps):
+    """K2's least time at these inputs: the distinct image taps the windows
+    read, the point inputs and the parameter row read once, the 64-float
+    output written once; FP32 operations as counted at FLOP_PER_*.
+    Returns (bound_ms, bound_by, distinct taps, bytes, flops)."""
+    from fast_livo2_tpu_torch.ops import photo_iteration as photo
+
+    M = meta.shape[0]
+    taps = int(torch.unique(photo.window_taps(img.shape, meta, par,
+                                              clip_taps=clip_taps)).numel())
+    nbytes = (taps + M * (photo.META_W + 64) + photo.PAR_W + photo.OUT_W) * 4
+    flops = M * (64 * FLOP_PER_PIXEL + FLOP_PER_POINT) + M * photo.OUT_W
+    return (*bound(nbytes, flops), taps, nbytes, flops)
+
+
+def k2_rig_shapes():
+    """K2 against its plain version at each pinhole rig's processed camera
+    (its size, intrinsics and radtan distortion) and tracked-slot count,
+    in the sampling the port takes there (clip_taps_at(M): M = 486 is
+    above the JAX package's 448-point gate), on a smooth frame; each
+    timed with its plain version and bounded."""
+    from fast_livo2_tpu_torch.models import camera
+    from fast_livo2_tpu_torch.ops import photo_iteration as photo
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    out = {}
+    for name, M in RIG_K2_SHAPES:
+        cam = camera.make_camera(load_config(*rig_paths(name)).camera)
+        img = torch.from_numpy(smooth_image(cam.height, cam.width, seed=M)).cuda()
+        args = k2_inputs(img, True, M=M, cam=cam)
+        clip = photo.clip_taps_at(M)
+        check(clip == (M > 448), f"K2 {name}: clip_taps_at({M}) = {clip}")
+        before = photo.LAUNCHES
+        got = photo.photo_iteration(*args, clip_taps=clip)
+        torch.cuda.synchronize()
+        check(photo.LAUNCHES == before + 1, f"K2 {name}: no launch counted")
+        err, rel = check_k2(got, photo.photo_iteration_plain(
+            *args, clip_taps=clip), f"{name} M={M}")
+        bound_ms, bound_by, taps, nbytes, flops = k2_bound(
+            img, args[1], args[3], clip)
+        out[name] = {
+            "H": cam.height, "W": cam.width, "M": M, "clip_taps": clip,
+            "dist": list(cam.d), "max_abs_err": err,
+            "max_err_over_block_max": rel,
+            "ms": time_cuda(lambda: photo.photo_iteration(*args, clip_taps=clip)),
+            "plain_ms": time_cuda(lambda: photo.photo_iteration_plain(
+                *args, clip_taps=clip), calls=20),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "distinct_taps": taps, "bytes": nbytes, "flops": flops}
+    return out
 
 
 def phase_side_stream(img):
@@ -2421,15 +2495,19 @@ def make_sequence(name):
 
 
 def make_sequences(root):
-    """Build SEQUENCES one after another into root/NAME (npz sequence
-    directories). Each lands under a temporary name and is renamed when
-    complete, so `wait_sequence` can take it while the next one builds."""
+    """Build SEQUENCES, then the rigs' recordings (make_rig), one after
+    another into root/NAME (npz sequence directories; root/rig_NAME). Each
+    lands under a temporary name and is renamed when complete, so
+    `wait_built` can take it while the next one builds."""
     from fast_livo2_tpu_torch.io import dataset
 
-    for name in SEQUENCES:
+    for name in SEQUENCES + tuple(f"rig_{r}" for r in RIGS):
         t0 = time.perf_counter()
         tmp = os.path.join(root, f".{name}")
-        dataset.save_sequence(tmp, make_sequence(name))
+        if name.startswith("rig_"):
+            make_rig(name[4:], tmp)
+        else:
+            dataset.save_sequence(tmp, make_sequence(name))
         with open(os.path.join(tmp, "built_s.txt"), "w") as f:
             f.write(repr(time.perf_counter() - t0))
         os.replace(tmp, os.path.join(root, name))
@@ -2453,10 +2531,9 @@ def start_sequences():
     return proc, root, time.perf_counter()
 
 
-def wait_sequence(started, name):
-    """Wait until the child has built `name`, and load it."""
-    from fast_livo2_tpu_torch.io import dataset
-
+def wait_built(started, name):
+    """Wait until the child has built `name`. Returns (its directory, when
+    it was built and ready, and how long this waited)."""
     proc, root, t0 = started
     path = os.path.join(root, name)
     t_wait = time.perf_counter()
@@ -2464,17 +2541,26 @@ def wait_sequence(started, name):
         if proc.poll() is not None or time.perf_counter() - t_wait > 900:
             with open(os.path.join(root, "stderr.txt")) as f:
                 err = f.read()[-2000:]
-            check(False, f"{name} sequence not built (child exit "
+            check(False, f"{name} not built (child exit "
                          f"{proc.poll()}):\n{err}")
         time.sleep(0.2)
-    seq = dataset.load_sequence(path)
     with open(os.path.join(path, "built_s.txt")) as f:
         built_s = float(f.read())
+    return path, {"built_in_s": built_s,
+                  "ready_after_s": time.perf_counter() - t0,
+                  "waited_s": time.perf_counter() - t_wait}
+
+
+def wait_sequence(started, name):
+    """Wait until the child has built `name`, and load it."""
+    from fast_livo2_tpu_torch.io import dataset
+
+    path, ready = wait_built(started, name)
+    seq = dataset.load_sequence(path)
     emit({"phase": f"{name}_sequence", "scans": len(seq.scans),
           "images": len(seq.images),
           "points_per_scan": int(np.median([len(p) for _, p, _ in seq.scans])),
-          "built_in_s": built_s, "ready_after_s": time.perf_counter() - t0,
-          "waited_s": time.perf_counter() - t_wait})
+          **ready})
     return seq
 
 
@@ -2845,6 +2931,470 @@ def phase_tools(seq):
     emit(out)
 
 
+# ------------------------------------------------------------------ rigs
+# The four sensor rigs the repo ships (configs/), each from its own
+# recording to a trajectory through the CLI on the card. A rig: its
+# config pair, scene, LiDAR pattern (lines x points over a horizontal
+# field of view, the rig's points a scan), camera rate and seconds, and
+# whether it is recorded as a ROS bag. K2 launches a fused VIO frame:
+# pyramid levels x iterations on a pinhole camera, 0 on the fisheye
+# (its update runs in tensor ops, as in the JAX package).
+RIGS = {
+    "avia": dict(sensor="avia.yaml", camera="camera_pinhole.yaml",
+                 scene="room", lines=24, per_line=1000, fov_deg=70.0,
+                 img_hz=10.0, seconds=4.0, degrade=True, bag=True),
+    "ntu_viral": dict(sensor="ntu_viral.yaml", camera="camera_ntu_viral.yaml",
+                      scene="room", lines=16, per_line=1024, fov_deg=360.0,
+                      img_hz=10.0, seconds=4.0, bag=True),
+    "hilti22": dict(sensor="hilti22.yaml", camera="camera_fisheye_hilti22.yaml",
+                    scene="room", lines=32, per_line=2000, fov_deg=360.0,
+                    img_hz=40.0, seconds=4.0, bag=True),
+    # the first 6 s of bench.py:435-450's outdoor flight (its scene,
+    # waypoints, noise and biases), rendered at 2448 x 2048. Its LIVO
+    # run is chaotic there, in both packages (PERF.md, PR 10): two runs
+    # that differ only in the order of the card's float sums part by
+    # 13 cm, so it runs only the deterministic pair.
+    "mars_lvig": dict(sensor="mars_lvig.yaml", camera="camera_mars_lvig.yaml",
+                      scene="outdoor", lines=24, per_line=1000, fov_deg=70.0,
+                      img_hz=10.0, seconds=6.0, max_range=80.0, bag=False,
+                      forms=("split_det", "fused_det")),
+}
+RIG_ATE_GATES = {"avia": 0.05, "ntu_viral": 0.05,
+                 "hilti22": 0.06}  # tests/test_pipeline_livo.py:166
+RIG_DRIFT_GATE_PCT = 0.5  # mars_lvig: tests/test_long_run.py:237-309
+# bench.py:435-450's outdoor noise and biases (mars_lvig)
+OUTDOOR_NOISE = dict(gyr_noise=2e-3, acc_noise=2e-2, range_noise=0.03,
+                     bias_g=np.array([0.002, -0.0015, 0.001]),
+                     bias_a=np.array([0.05, -0.03, 0.08]), lidar_dropout=0.05,
+                     lidar_outlier_frac=0.005)
+# PointCloud2 layouts (name, offset, datatype, numpy type): ouster_ros's
+# point (x y z, intensity, t ns from the scan start, ring; 48 bytes) and
+# hesai_ros's XT32 point (x y z, intensity, timestamp s, ring; 48 bytes).
+OUSTER_FIELDS = (("x", 0, 7, "f4"), ("y", 4, 7, "f4"), ("z", 8, 7, "f4"),
+                 ("intensity", 16, 7, "f4"), ("t", 20, 6, "u4"),
+                 ("ring", 26, 2, "u1"))
+XT32_FIELDS = (("x", 0, 7, "f4"), ("y", 4, 7, "f4"), ("z", 8, 7, "f4"),
+               ("intensity", 16, 7, "f4"), ("timestamp", 24, 8, "f8"),
+               ("ring", 32, 4, "u2"))
+POINT_STEP = 48
+# K2 at each pinhole rig's processed camera and tracked-slot count
+RIG_K2_SHAPES = (("avia", 396), ("ntu_viral", 486), ("mars_lvig", 378))
+
+
+def rig_paths(name):
+    r = RIGS[name]
+    return (os.path.join(REPO, "configs", r["sensor"]),
+            os.path.join(REPO, "configs", r["camera"]))
+
+
+def rig_extrinsics(cfg):
+    """(R, T, R_ci, P_ci): the yaml's LiDAR-to-IMU extrinsic (p_I = R p_L +
+    T, as core/pipeline.py reads it) and the camera from the IMU
+    (R_ci = Rcl R^T, P_ci = Pcl - Rcl R^T T)."""
+    e = cfg.extrin_calib
+    R = np.array(e.extrinsic_R, np.float64).reshape(3, 3)
+    T = np.array(e.extrinsic_T, np.float64)
+    Rcl = np.array(e.Rcl, np.float64).reshape(3, 3)
+    Pcl = np.array(e.Pcl, np.float64)
+    return R, T, Rcl @ R.T, Pcl - Rcl @ R.T @ T
+
+
+def _texture_on_card(u, v, seed, hf_amp):
+    """io/synthetic.texture in torch: the same draws, on u, v's device."""
+    rng = np.random.default_rng(seed)
+    val = torch.zeros_like(u)
+    for _ in range(6):
+        fu, fv = rng.uniform(0.3, 3.0, 2)
+        ph_u, ph_v = rng.uniform(0, 2 * np.pi, 2)
+        amp = rng.uniform(0.3, 1.0)
+        val = val + amp * torch.sin(fu * u * 2 * np.pi + ph_u) * torch.sin(
+            fv * v * 2 * np.pi + ph_v)
+    out = 128.0 + 40.0 * val / 2.2
+    if hf_amp > 0.0:
+        hf = torch.zeros_like(u)
+        for _ in range(4):
+            fu, fv = rng.uniform(5.0, 25.0, 2)
+            ph_u, ph_v = rng.uniform(0, 2 * np.pi, 2)
+            hf = hf + torch.sin(fu * u * 2 * np.pi + ph_u) * torch.sin(
+                fv * v * 2 * np.pi + ph_v)
+        out = out + hf_amp * 10.0 * hf
+    return out
+
+
+def render_on_card(traj, planes, t, cam, exposure=1.0, R_ci=None, P_ci=None,
+                   cull_range=None, rays=None):
+    """io/synthetic.render_image on the card, in float64: the same rays
+    (models/camera.cam2world of every pixel), nearest front-face hit over
+    the scene's planes (bounded or not), io/synthetic.texture's shading.
+    The rigs' scenes hold only planes. A 2448 x 2048 frame of the outdoor
+    world's 145 surfaces takes about a minute in numpy on one core.
+    `rays`: a dict that keeps each camera's rays across frames."""
+    from fast_livo2_tpu_torch.io import synthetic
+    from fast_livo2_tpu_torch.models import camera as cam_mod
+
+    rays = {} if rays is None else rays
+    R_ci = np.eye(3) if R_ci is None else R_ci
+    P_ci = np.zeros(3) if P_ci is None else P_ci
+    R_wi, p_wi = traj.pose(t)
+    R_cw = R_ci @ R_wi.T
+    R_wc = R_cw.T
+    o = -R_wc @ (-R_cw @ p_wi + P_ci)
+    if cull_range is not None:
+        planes = synthetic.cull_surfaces(planes, o, cull_range)
+    if cam not in rays:
+        ys, xs = np.meshgrid(np.arange(cam.height), np.arange(cam.width),
+                             indexing="ij")
+        px = torch.from_numpy(np.stack([xs, ys], axis=-1).reshape(-1, 2)
+                              .astype(np.float32)).cuda()
+        rays[cam] = cam_mod.cam2world(cam, px).double()
+    d = rays[cam] @ torch.from_numpy(R_wc.T).cuda()
+    n = d.shape[0]
+    best_t = torch.full((n,), float("inf"), dtype=torch.float64, device="cuda")
+    best_i = torch.full((n,), -1, dtype=torch.int64, device="cuda")
+    for i, s in enumerate(planes):
+        check(isinstance(s, synthetic.Plane), f"render_on_card: {type(s)}")
+        denom = d @ torch.from_numpy(s.normal.astype(np.float64)).cuda()
+        tt = float((s.point - o) @ s.normal) / denom
+        ok = (denom < -1e-9) & (tt > 0.05)
+        rel = (torch.from_numpy(o - s.point).cuda()
+               + d * torch.where(ok, tt, 0.0)[:, None])
+        for ext, axis in ((s.u_extent, s.u_axis), (s.v_extent, s.v_axis)):
+            if ext is not None:
+                c = rel @ torch.from_numpy(axis.astype(np.float64)).cuda()
+                ok &= (c >= ext[0]) & (c <= ext[1])
+        tt = torch.where(ok, tt, float("inf"))
+        closer = tt < best_t
+        best_t = torch.where(closer, tt, best_t)
+        best_i = torch.where(closer, i, best_i)
+    img = torch.full((n,), 90.0, dtype=torch.float64, device="cuda")
+    for i, s in enumerate(planes):
+        m = best_i == i
+        rel = (torch.from_numpy(o - s.point).cuda()
+               + d[m] * best_t[m][:, None])
+        img[m] = _texture_on_card(
+            rel @ torch.from_numpy(s.u_axis.astype(np.float64)).cuda(),
+            rel @ torch.from_numpy(s.v_axis.astype(np.float64)).cuda(),
+            s.tex_seed, s.hf_amp)
+    img = torch.clamp(img * exposure, 0, 255).reshape(cam.height, cam.width)
+    return img.float().cpu().numpy()
+
+
+def rig_sequence(name):
+    """The rig's recording at its published width: io/synthetic's scene
+    rendered through the rig's camera at the camera yaml's full
+    resolution and extrinsics, at its camera rate; each scan written in
+    the rig's LiDAR frame (p_L = R^T (p_I - T)); each stream's stamps the
+    true time less the yaml's offset for it (load_sequence(cfg=) adds
+    them back); the ground truth in true time. Returns (sequence, cfg)."""
+    from fast_livo2_tpu_torch.io import dataset, synthetic
+    from fast_livo2_tpu_torch.models import camera as cam_mod
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    r = RIGS[name]
+    cfg = load_config(*rig_paths(name))
+    full = copy.deepcopy(cfg.camera)
+    full.scale = 1.0
+    R, T, R_ci, P_ci = rig_extrinsics(cfg)
+    kw = dict(DEGRADE) if r.get("degrade") else {}
+    if r["scene"] == "outdoor":
+        kw.update(OUTDOOR_NOISE, planes=synthetic.long_outdoor_scene(),
+                  traj=synthetic.WaypointTrajectory(
+                      synthetic.long_outdoor_waypoints(), duration=44.0))
+    render = synthetic.render_image
+    synthetic.render_image = functools.partial(render_on_card, rays={})
+    try:
+        seq = synthetic.make_sequence(
+            duration=r["seconds"], lidar_hz=10.0, img_hz=r["img_hz"],
+            imu_hz=200.0, cam=cam_mod.make_camera(full), seed=0,
+            n_lines=r["lines"], n_per_line=r["per_line"], render=True,
+            fov_deg=r["fov_deg"], R_ci=R_ci, P_ci=P_ci,
+            max_range=r.get("max_range"), **kw)
+    finally:
+        synthetic.render_image = render
+    off = cfg.time_offset
+    return dataset.NpzSequence(
+        imu_stamps=seq.imu_stamps + off.imu_time_offset,
+        imu_gyr=seq.imu_gyr, imu_acc=seq.imu_acc,
+        scans=[(t - off.lidar_time_offset,
+                ((p.astype(np.float64) - T) @ R).astype(np.float32), o)
+               for t, p, o in seq.scans],
+        images=[(t - off.img_time_offset, im) for t, im in seq.images],
+        gt=seq.gt), cfg
+
+
+def _pointcloud2(fields, t, values):
+    """A sensor_msgs/PointCloud2 of one scan (`values`: field -> column)."""
+    from types import SimpleNamespace as NS
+
+    from fast_livo2_tpu_torch.io import rosbag
+
+    dt = np.dtype({"names": [f[0] for f in fields],
+                   "formats": [f[3] for f in fields],
+                   "offsets": [f[1] for f in fields], "itemsize": POINT_STEP})
+    n = len(values["x"])
+    arr = np.zeros(n, dt)
+    for f in dt.names:
+        arr[f] = values[f]
+    return NS(header=rosbag.make_header(t, "lidar"), height=1, width=n,
+              fields=[NS(name=f[0], offset=f[1], datatype=f[2], count=1)
+                      for f in fields],
+              is_bigendian=False, point_step=POINT_STEP,
+              row_step=POINT_STEP * n, data=arr.tobytes(), is_dense=True)
+
+
+def rig_bag_messages(seq, cfg, lines):
+    """The recording as (topic, type, stamp, message) on the yaml's topics:
+    sensor_msgs/Imu, the rig's LiDAR driver's message (Livox CustomMsg
+    for type 1, an Ouster or Hesai XT32 PointCloud2 for types 3 and 5,
+    each point's line from its place in the scan) and raw mono8 images."""
+    from types import SimpleNamespace as NS
+
+    from fast_livo2_tpu_torch.io import rosbag
+
+    c, lidar_type = cfg.common, cfg.preprocess.lidar_type
+    msgs = [(c.imu_topic, rosbag.IMU_TYPE, float(t), NS(
+        header=rosbag.make_header(float(t), "imu"),
+        angular_velocity=NS(x=float(g[0]), y=float(g[1]), z=float(g[2])),
+        linear_acceleration=NS(x=float(a[0]), y=float(a[1]), z=float(a[2]))))
+        for t, g, a in zip(seq.imu_stamps, seq.imu_gyr, seq.imu_acc)]
+    for t, pts, offs in seq.scans:
+        t = float(t)
+        ring = np.arange(len(pts)) % lines
+        if lidar_type == 1:
+            arr = np.zeros(len(pts), rosbag._LIVOX_PT)
+            arr["offset_time"] = np.round(offs.astype(np.float64) * 1e9)
+            arr["x"], arr["y"], arr["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
+            arr["tag"] = 0x10
+            arr["line"] = ring % 6
+            mtype, msg = rosbag.LIVOX_TYPE, NS(
+                header=rosbag.make_header(t, "livox"),
+                timebase=int(round(t * 1e9)), points_arr=arr)
+        else:
+            cols = dict(x=pts[:, 0], y=pts[:, 1], z=pts[:, 2],
+                        intensity=100.0, ring=ring)
+            if lidar_type == 3:
+                cols["t"] = np.round(offs.astype(np.float64) * 1e9)
+                fields = OUSTER_FIELDS
+            else:
+                cols["timestamp"] = t + offs.astype(np.float64)
+                fields = XT32_FIELDS
+            mtype, msg = rosbag.PC2_TYPE, _pointcloud2(fields, t, cols)
+        msgs.append((c.lid_topic, mtype, t, msg))
+    for t, img in seq.images:
+        img = np.ascontiguousarray(img.astype(np.uint8))
+        h, w = img.shape
+        msgs.append((c.img_topic, rosbag.IMAGE_TYPE, float(t), NS(
+            header=rosbag.make_header(float(t), "camera"), height=h, width=w,
+            encoding="mono8", is_bigendian=False, step=w, data=img.tobytes())))
+    return msgs
+
+
+def make_rig(name, path):
+    """The rig's recording under `path`: rig.bag (the port's write_bag) and
+    gt.npz, or (no bag) an npz sequence directory `seq` with gt.npz."""
+    from fast_livo2_tpu_torch.io import dataset, rosbag
+
+    seq, cfg = rig_sequence(name)
+    if RIGS[name]["bag"]:
+        os.makedirs(path)
+        rosbag.write_bag(os.path.join(path, "rig.bag"),
+                         rig_bag_messages(seq, cfg, RIGS[name]["lines"]))
+        dataset.save_sequence(os.path.join(path, "truth"), dataset.NpzSequence(
+            imu_stamps=seq.imu_stamps[:0], imu_gyr=seq.imu_gyr[:0],
+            imu_acc=seq.imu_acc[:0], scans=[], images=[], gt=seq.gt))
+        os.replace(os.path.join(path, "truth", "gt.npz"),
+                   os.path.join(path, "gt.npz"))
+    else:
+        dataset.save_sequence(os.path.join(path, "seq"), seq)
+        shutil.copy(os.path.join(path, "seq", "gt.npz"),
+                    os.path.join(path, "gt.npz"))
+
+
+def fused_yaml(sensor, path):
+    """A copy of the sensor yaml with `tpu: fused_frame: true` (the tpu
+    section is additive)."""
+    import yaml
+
+    with open(sensor) as f:
+        doc = yaml.safe_load(f)
+    doc.setdefault("tpu", {})["fused_frame"] = True
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+
+
+def cli_rig_run(config, camera, seq_dir, out):
+    """`python -m fast_livo2_tpu_torch.run --config --camera --seq --out
+    --device cuda` in process, its pipeline's `process` driven frame by
+    frame (`drive`: each frame timed, its host syncs counted) with the
+    kernels' launch counts set to 0 just before and read just after.
+    Returns (summary, wall s, dict(traj rows, ms, syncs, launches,
+    graphs, n_tracked, iterations))."""
+    from fast_livo2_tpu_torch import run
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    got = {}
+    process = LIVOPipeline.process
+
+    def driven(pipe, seq, max_frames=None, progress=False):
+        pipe.push_sequence(seq)
+        torch.cuda.synchronize()
+        reset_launches()
+        got["ms"], got["syncs"] = drive(pipe)
+        got["launches"] = read_launches()
+        pipe._finalize_host_views()
+        got["graphs"] = (pipe._frame_graphs.summary()
+                         if pipe._frame_graphs is not None else None)
+        got["n_tracked"] = [r.get("n_tracked", 0) for r in pipe.log.rows]
+        got["iterations"] = pipe.photo_iterations
+        got["levels_x_iterations"] = (pipe.vio_cfg.pyramid_levels
+                                      * pipe.vio_cfg.max_iterations)
+        got["fused_k2"] = (pipe.cam.model == "pinhole"
+                           and pipe.vio_cfg.pallas_photo)
+        got["traj"] = list(pipe.trajectory)
+        return pipe.trajectory
+
+    LIVOPipeline.process = driven
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run.main(["--config", config, "--camera", camera,
+                                "--seq", seq_dir, "--out", out,
+                                "--device", "cuda"])
+        wall_s = time.perf_counter() - t0
+    finally:
+        LIVOPipeline.process = process
+    free_device_memory()
+    return summary, wall_s, got
+
+
+def phase_rig(name, built, ready):
+    """One rig from its recording to a trajectory on the card: (bag rigs)
+    `python -m fast_livo2_tpu_torch.convert_rosbag` with the yaml's lidar
+    type, blind, point_filter_num and topics, in a subprocess; then the
+    CLI with the shipped yaml pair in each of the rig's forms: split and
+    fused (a copy of the yaml with tpu.fused_frame, one CUDA graph a
+    frame), timed, then the same pair under deterministic algorithms
+    (mars_lvig: only that pair, RIGS says why). Gates on the first pair:
+    ATE (ground truth interpolated at each pose) < 0.05 m (avia,
+    ntu_viral) or 0.06 m (hilti22), drift <= 0.5 % of the path
+    (mars_lvig); mean tracked points > 20 from frame 3 on (but mars_lvig:
+    reported); fused vs split within the golden tolerances, the
+    deterministic pair 0.0 m; one graph, 0 host syncs in every replayed
+    frame; K1 once a frame; K2 on every fused VIO frame levels x
+    iterations times (0 on the fisheye) and on the split run once an
+    iteration that took effect. The phase's line is printed before a
+    failed gate fails it. Returns the fused run's launches."""
+    from fast_livo2_tpu_torch.io import synthetic
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    r = RIGS[name]
+    sensor, camera = rig_paths(name)
+    cfg = load_config(sensor, camera)
+    root = os.path.join(REPO, "build", "smoke_rigs", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {"phase": f"rig_{name}", "seconds": r["seconds"], "recording": ready,
+           "lidar": f"type {cfg.preprocess.lidar_type}, {r['lines']} x "
+                    f"{r['per_line']} over {r['fov_deg']} deg",
+           "camera": [cfg.camera.cam_width, cfg.camera.cam_height,
+                      cfg.camera.scale, cfg.camera.cam_model]}
+    if r["bag"]:
+        bag = os.path.join(built, "rig.bag")
+        seq_dir = os.path.join(root, "seq")
+        c, p = cfg.common, cfg.preprocess
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fast_livo2_tpu_torch.convert_rosbag", bag,
+             seq_dir, "--lidar-type", str(p.lidar_type), "--blind",
+             str(p.blind), "--filter-num", str(p.point_filter_num),
+             "--lid-topic", c.lid_topic, "--imu-topic", c.imu_topic,
+             "--img-topic", c.img_topic],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        out["convert_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"rig {name}: convert_rosbag failed:\n{proc.stderr[-3000:]}")
+        out["bag_bytes"] = os.path.getsize(bag)
+        out["converter_stdout"] = proc.stdout.strip()
+        shutil.copy(os.path.join(built, "gt.npz"), seq_dir)
+    else:
+        seq_dir = os.path.join(built, "seq")
+    g = np.load(os.path.join(built, "gt.npz"))
+    gt = [(t, None, p) for t, p in zip(g["stamps"], g["pos"])]
+    path = float(np.sum(np.linalg.norm(np.diff(g["pos"], axis=0), axis=1)))
+    fused_cfg = os.path.join(root, "fused.yaml")
+    fused_yaml(sensor, fused_cfg)
+    forms = r.get("forms", ("split", "fused", "split_det", "fused_det"))
+    runs = {}
+    for form in forms:
+        ctx = (deterministic() if form.endswith("_det")
+               else contextlib.nullcontext())
+        with ctx:
+            summary, wall_s, got = cli_rig_run(
+                fused_cfg if form.startswith("fused") else sensor, camera,
+                seq_dir, os.path.join(root, f"out_{form}"))
+        check(summary["mode"] == "livo" and summary["frames"] == len(got["traj"]),
+              f"rig {name} {form}: CLI ran {summary['frames']} "
+              f"{summary['mode']} frames")
+        runs[form] = dict(got, summary=summary, wall_s=wall_s)
+    split, fused = forms[0], forms[1]
+    per_frame = (runs[fused]["levels_x_iterations"]
+                 if runs[fused]["fused_k2"] else 0)
+    failed = []
+
+    def gate(cond, msg):
+        if not cond:
+            failed.append(msg)
+
+    for form in forms:
+        x = runs[form]
+        frames = len(x["traj"])
+        gate(frames >= 10 * r["seconds"] - 12, f"rig {name} {form}: "
+                                               f"{frames} frames")
+        ate = synthetic.ate_rmse([(t, p) for t, _, p in x["traj"]], gt)
+        tracked = float(np.mean(x["n_tracked"][3:]))
+        nums = {"frames": frames, "ate_rmse_m": ate,
+                "cli_ate_rmse_m": x["summary"].get("ate_rmse_m"),
+                "drift_pct": 100.0 * ate / path, "mean_n_tracked": tracked,
+                "cli_wall_s": x["wall_s"], "launches": x["launches"]}
+        if form in (split, fused):
+            if name in RIG_ATE_GATES:
+                gate(ate < RIG_ATE_GATES[name], f"rig {name} {form}: ATE "
+                                                f"{ate} m >= {RIG_ATE_GATES[name]} m")
+                gate(tracked > TRACKED_GATE,
+                     f"rig {name} {form}: mean n_tracked {tracked}")
+            else:
+                gate(nums["drift_pct"] <= RIG_DRIFT_GATE_PCT,
+                     f"rig {name} {form}: drift {nums['drift_pct']} % of "
+                     f"{path} m")
+        if form.startswith("split"):
+            nums.update(split_checks(f"rig {name} {form}", x,
+                                     x["iterations"] if per_frame else None))
+            check(per_frame or x["launches"]["photo_iteration"] == 0,
+                  f"rig {name} {form}: K2 launched on the fisheye")
+        else:
+            nums.update(fused_checks(f"rig {name} {form}", x, frames - 1,
+                                     per_frame))
+        out[form] = nums
+    for a, b in dict.fromkeys(((fused, split), ("fused_det", "split_det"))):
+        dp, dR = traj_diff(runs[a]["traj"], runs[b]["traj"])
+        exact = a.endswith("_det")
+        gate(dp == dR == 0.0 if exact else dp <= POS_TOL_M and dR <= ROT_TOL,
+             f"rig {name}: {a} vs {b} {dp} m, {dR}")
+        out[f"{a}_vs_{b}"] = {"max_pos_diff_m": dp, "max_rot_diff": dR}
+    out.update(path_m=path, k2_per_fused_vio_frame=per_frame,
+               nvidia_smi=nvidia_smi(), failed=failed)
+    emit(out)
+    check(not failed, "; ".join(failed))
+    return runs[fused]["launches"]
+
+
+def phase_rigs(started):
+    """Each rig in RIGS, as its recording is ready (built by the sequence
+    child). Returns {"rig_<name>": the fused run's launches}."""
+    return {f"rig_{name}": phase_rig(name, *wait_built(started, f"rig_{name}"))
+            for name in RIGS}
+
+
 def smooth_image(H, W, seed=0):
     """A smooth DN-scale (H, W) float32 image (a doubly integrated noise
     field scaled to 0-255)."""
@@ -3025,6 +3575,7 @@ def main(argv):
         check(phases["outdoor"]["cov_scan"] > 0,
               "cov_scan never launched in the outdoor phase")
         phase_tools(seq)
+        phases.update(phase_rigs(started))
         # the fused LIVO path's run (tpu.fused_frame: the kernels launch
         # from its graph's replays), and K1's and K2's ms a replayed frame
         for k, name in ((k1, "cov_scan"), (k2, "photo_iteration")):

@@ -549,9 +549,12 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
                  if cfg.true_pyramid else None)
     # The JAX package's dispatch predicate (vio.py:546-549) without its
     # two TPU-only terms, the backend test and the M <= 448 gate (both set
-    # from TPU timings): the kernel on CUDA, its plain version on CPU.
+    # from TPU timings): the kernel on CUDA, its plain version on CPU. Above
+    # the gate the kernel samples as the JAX package's XLA path does there
+    # (clip_taps), decided here from the static M.
     fused = (cfg.pallas_photo and not cfg.true_pyramid
              and cam.model == "pinhole" and ps == 8)
+    clip_taps = photo_mod.clip_taps_at(submap.pos.shape[0])
     has_dist = 1.0 if cam_mod.has_distortion(cam) else 0.0
     img32 = img.to(torch.float32).contiguous()
     iterations = 0
@@ -574,7 +577,7 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
                     Rcw, Pcw, tau, Jdphi_dR, Jdp_dR, cam.fx, cam.fy, cam.cx,
                     cam.cy, cam.d, expo_col, has_dist)
                 HTH7, HTz7, err_sum, _ = photo_mod.photo_iteration(
-                    img32, meta, ref_patch, par, ps)
+                    img32, meta, ref_patch, par, ps, clip_taps=clip_taps)
                 return HTH7.to(f32), HTz7.to(f32), err_sum.to(f32) / n_meas
             pf = submap.pos @ Rcw.T + Pcw
             px = cam_mod.world2cam(cam, pf)

@@ -12,6 +12,12 @@
 //   x0 = floor(u/s)*s - 5s clipped as ONE block to [0, W - 12s];
 //   y0 = floor(v/s)*s - 5s; each of the 12 rows clipped to [0, H-1]
 //   window[r][c] = img(row(y0 + r s), x0 + c s), r, c < 12
+// With clip_taps set, the sampling of the JAX package's XLA path
+// instead (fast_livo2_tpu/ops/image.py:_superpatch, which that package
+// takes above 448 tracked points): s = 1 << slog with no clamp (slog
+// limited to [0, 30] only to stay in int range) and every tap clipped on
+// its own, window[r][c] = img(clip(y0 + r s, 0, H-1), clip(x0 + c s, 0,
+// W-1)), in 64-bit coordinates.
 //   val/du/dv = bilinear (weights from the sub-stride fraction) on 8x8
 //   res = tau * val - ref
 //   ten okf-masked patch sums, then the closed-form row
@@ -65,7 +71,7 @@
 //
 // C interface for ctypes:
 //   photo_iteration_launch(img, meta, ref, par, partials, ticket, out,
-//                          H, W, M, max_slog, device, stream)
+//                          H, W, M, max_slog, clip_taps, device, stream)
 // img (H, W), meta (M, 8), ref (M, 8, 8), par (1, 64) contiguous float32
 // pointers on CUDA device `device`; partials (>= ceil(M / 8) x 64 floats)
 // and ticket (one uint32, 0 before the first call, left at 0 by every
@@ -111,7 +117,8 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 __device__ __forceinline__ void point_row(
     const float* __restrict__ img, const float* __restrict__ m,
     const float* __restrict__ refi, const float* P, float (*win)[kWin],
-    int H, int W, int max_slog, int lane, float& e0, float& e1) {
+    int H, int W, int max_slog, bool clip_taps, int lane, float& e0,
+    float& e1) {
   // Projection: every lane computes the same per-point scalars.
   const float px = __ldg(m), py = __ldg(m + 1), pz = __ldg(m + 2);
   const int slog = static_cast<int>(__ldg(m + 3));
@@ -138,20 +145,26 @@ __device__ __forceinline__ void point_row(
   const float v = fy * vv + cy;
   const float okf = (ok0 && z_ok) ? 1.0f : 0.0f;
 
-  // The clamped stride and the clipped 12 x 12 window.
+  // The stride and the 12 x 12 window: clamped and clipped as one block
+  // (the TPU kernel), or unclamped with every tap clipped (clip_taps).
   const int lo = -(kPs / 2) - 1;
-  const int sd = 1 << clampi(slog, 0, max_slog);
+  const int sd = 1 << (clip_taps ? clampi(slog, 0, 30) : clampi(slog, 0, max_slog));
   const float sf = static_cast<float>(sd);
   const float ui = floorf(u / sf) * sf;
   const float vi = floorf(v / sf) * sf;
-  int x0 = static_cast<int>(fminf(fmaxf(ui, -kFloorClamp), kFloorClamp)) + lo * sd;
-  const int y0 = static_cast<int>(fminf(fmaxf(vi, -kFloorClamp), kFloorClamp)) + lo * sd;
-  x0 = min(max(x0, 0), W - kWin * sd);
+  long long x0 = static_cast<long long>(static_cast<int>(
+      fminf(fmaxf(ui, -kFloorClamp), kFloorClamp))) + static_cast<long long>(lo) * sd;
+  const long long y0 = static_cast<long long>(static_cast<int>(
+      fminf(fmaxf(vi, -kFloorClamp), kFloorClamp))) + static_cast<long long>(lo) * sd;
+  if (!clip_taps) x0 = min(max(x0, 0LL), static_cast<long long>(W - kWin * sd));
   for (int e = lane; e < kWin * kWin; e += 32) {
     const int r = e / kWin;
     const int c = e - r * kWin;
-    const int y = clampi(y0 + r * sd, 0, H - 1);
-    win[r][c] = __ldg(img + static_cast<size_t>(y) * W + x0 + c * sd);
+    const long long y = min(max(y0 + static_cast<long long>(r) * sd, 0LL),
+                            static_cast<long long>(H - 1));
+    long long x = x0 + static_cast<long long>(c) * sd;
+    if (clip_taps) x = min(max(x, 0LL), static_cast<long long>(W - 1));
+    win[r][c] = __ldg(img + y * W + x);
   }
   __syncwarp();
 
@@ -250,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
 photo_iteration_kernel(const float* __restrict__ img, const float* __restrict__ meta,
                        const float* __restrict__ ref, const float* __restrict__ par,
                        float* partials, unsigned* ticket, float* __restrict__ out,
-                       int H, int W, int M, int max_slog) {
+                       int H, int W, int M, int max_slog, bool clip_taps) {
   __shared__ float P[kParW];
   __shared__ float win[kWarps][kWin][kWin];
   __shared__ float rows[kWarps][kOutW];
@@ -267,7 +280,7 @@ photo_iteration_kernel(const float* __restrict__ img, const float* __restrict__ 
   if (i < M) {  // uniform over the warp
     point_row(img, meta + static_cast<size_t>(i) * kMetaW,
               ref + static_cast<size_t>(i) * kPs * kPs, P, win[w], H, W,
-              max_slog, lane, e0, e1);
+              max_slog, clip_taps, lane, e0, e1);
   }
   rows[w][lane] = e0;
   rows[w][lane + 32] = e1;
@@ -307,7 +320,7 @@ extern "C" int photo_iteration_launch(const void* img, const void* meta,
                                       const void* ref, const void* par,
                                       void* partials, void* ticket, void* out,
                                       int H, int W, int M, int max_slog,
-                                      int device, void* stream) {
+                                      int clip_taps, int device, void* stream) {
   if (H < 1 || W < kWin || M < 0 || max_slog < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -320,6 +333,6 @@ extern "C" int photo_iteration_launch(const void* img, const void* meta,
         static_cast<const float*>(img), static_cast<const float*>(meta),
         static_cast<const float*>(ref), static_cast<const float*>(par),
         static_cast<float*>(partials), static_cast<unsigned*>(ticket),
-        static_cast<float*>(out), H, W, M, max_slog);
+        static_cast<float*>(out), H, W, M, max_slog, clip_taps != 0);
   });
 }

@@ -36,6 +36,15 @@ One addition: the window base floor(u / s) * s is clamped to +-2^30
 before the integer conversion, so that a point projecting out of
 int32 range reads a clipped window on both devices (the conversion of
 such a value is undefined in C++ and differs between CPU and GPU).
+
+`clip_taps=True` switches both the kernel and the plain version to the
+sampling of ops/image.sample_patches_with_grad instead: no stride clamp
+(the exponent is kept in [0, 30] only to stay in int range) and every
+tap clipped on its own. The JAX package runs its TPU kernel only up to
+TPU_KERNEL_MAX_POINTS tracked points (fast_livo2_tpu/core/vio.py:
+546-549) and its XLA sampler above; `clip_taps_at(M)` gives the
+sampling that package uses at M points, so that the port, which runs
+this kernel at every M, computes what the JAX package computes.
 """
 
 import ctypes
@@ -56,6 +65,10 @@ OUT_W = 64  # HTH(49) | HTz(7) | err(56) | cnt(57) | pad
 WIN = 12  # superpatch rows/cols (ps + 4 at ps = 8)
 PS = 8
 _FLOOR_CLAMP = float(1 << 30)
+_MAX_SLOG_TAPS = 30  # clip_taps: 1 << 30 is the largest int stride
+# The JAX package's M-gate (fast_livo2_tpu/core/vio.py:546-549): its TPU
+# kernel at M <= 448 tracked points, its XLA sampler above.
+TPU_KERNEL_MAX_POINTS = 448
 
 BLOCK_POINTS = 8  # points a block of the kernel (one warp each)
 _F32 = torch.float32
@@ -74,6 +87,14 @@ def clamp_scale_log2(width: int, max_scale_log2: int = 4) -> int:
     while (1 << max_scale_log2) * WIN > width and max_scale_log2 > 0:
         max_scale_log2 -= 1
     return max_scale_log2
+
+
+def clip_taps_at(M: int) -> bool:
+    """True where the JAX package samples M tracked points through its XLA
+    path (each tap clipped, no stride clamp), False where through its TPU
+    kernel: decided from the static M, as the JAX package decides at trace
+    time."""
+    return M > TPU_KERNEL_MAX_POINTS
 
 
 def pack_points(pos, ref_patch, scale_log2, ok, ps: int = 8):
@@ -142,35 +163,42 @@ def _project(pts_meta, params):
     return (pfx, pfy, pfz), z, u, v, okf
 
 
-def _window(H, W, u, v, slog, max_scale_log2: int):
-    """The clamped stride sd (M,) and the clipped 12 x 12 window: row and
-    column indices (M, 12) each."""
+def _window(H, W, u, v, slog, max_scale_log2: int, clip_taps: bool):
+    """The stride sd (M,) and the 12 x 12 window: row and column indices
+    (M, 12) each, int64. The TPU kernel's clamp and block clip, or with
+    `clip_taps` no clamp and every tap clipped."""
     lo = -(PS // 2) - 1  # superpatch base offset
-    sd = torch.ones_like(slog) << torch.clamp(slog, 0, max_scale_log2)
+    hi = _MAX_SLOG_TAPS if clip_taps else max_scale_log2
+    sd = (torch.ones_like(slog) << torch.clamp(slog, 0, hi)).long()
     sf = sd.to(torch.float32)
     ui = torch.clamp(torch.floor(u / sf) * sf, -_FLOOR_CLAMP, _FLOOR_CLAMP)
     vi = torch.clamp(torch.floor(v / sf) * sf, -_FLOOR_CLAMP, _FLOOR_CLAMP)
-    x0 = ui.to(torch.int32) + lo * sd
-    y0 = vi.to(torch.int32) + lo * sd
-    x0 = torch.minimum(torch.clamp(x0, min=0), W - WIN * sd)
-    taps = torch.arange(WIN, dtype=torch.int32, device=u.device)
+    x0 = ui.to(torch.int32).long() + lo * sd
+    y0 = vi.to(torch.int32).long() + lo * sd
+    if not clip_taps:
+        x0 = torch.minimum(torch.clamp(x0, min=0), W - WIN * sd)
+    taps = torch.arange(WIN, dtype=torch.int64, device=u.device)
     rows = torch.clamp(y0[:, None] + taps[None, :] * sd[:, None], 0, H - 1)
     cols = x0[:, None] + taps[None, :] * sd[:, None]
+    if clip_taps:
+        cols = torch.clamp(cols, 0, W - 1)
     return sd, rows, cols
 
 
-def window_taps(img_shape, pts_meta, params, max_scale_log2: int = 4):
+def window_taps(img_shape, pts_meta, params, max_scale_log2: int = 4,
+                clip_taps: bool = False):
     """(M, 144) flat image indices the iteration reads: the clipped
     windows of every point (for counting the bytes a call needs)."""
     H, W = img_shape
     _, _, u, v, _ = _project(pts_meta, params)
     msl = clamp_scale_log2(W, max_scale_log2)
-    _, rows, cols = _window(H, W, u, v, pts_meta[:, 3].to(torch.int32), msl)
-    return (rows.long()[:, :, None] * W + cols.long()[:, None, :]).reshape(
-        rows.shape[0], -1)
+    _, rows, cols = _window(H, W, u, v, pts_meta[:, 3].to(torch.int32), msl,
+                            clip_taps)
+    return (rows[:, :, None] * W + cols[:, None, :]).reshape(rows.shape[0], -1)
 
 
-def _point_rows_plain(img, pts_meta, ref_patch, params, max_scale_log2: int):
+def _point_rows_plain(img, pts_meta, ref_patch, params, max_scale_log2: int,
+                      clip_taps: bool):
     """(M, OUT_W) per-point rows, the TPU kernel's arithmetic over a
     batch of points."""
     H, W = img.shape
@@ -185,9 +213,9 @@ def _point_rows_plain(img, pts_meta, ref_patch, params, max_scale_log2: int):
 
     (pfx, pfy, pfz), z, u, v, okf = _project(pts_meta, params)
     sd, rows, cols = _window(H, W, u, v, pts_meta[:, 3].to(torch.int32),
-                             max_scale_log2)
+                             max_scale_log2, clip_taps)
     sf = sd.to(torch.float32)
-    sp = img[rows.long()[:, :, None], cols.long()[:, None, :]]  # (M, 12, 12)
+    sp = img[rows[:, :, None], cols[:, None, :]]  # (M, 12, 12)
 
     su = ((u - torch.floor(u / sf) * sf) / sf)[:, None, None]
     sv = ((v - torch.floor(v / sf) * sf) / sf)[:, None, None]
@@ -260,11 +288,12 @@ def _unpack(tot):
 
 
 def photo_iteration_plain(img, pts_meta, ref_patch, params, ps: int = 8,
-                          max_scale_log2: int = 4):
+                          max_scale_log2: int = 4, clip_taps: bool = False):
     """The fused iteration in PyTorch ops, with the kernel's clamp and
-    window clipping. Returns (HTH7 (7, 7), HTz7 (7,), err_sum (), cnt ())."""
+    window clipping (or, with `clip_taps`, each tap clipped and no clamp).
+    Returns (HTH7 (7, 7), HTz7 (7,), err_sum (), cnt ())."""
     msl = clamp_scale_log2(img.shape[-1], max_scale_log2)
-    rows = _point_rows_plain(img, pts_meta, ref_patch, params, msl)
+    rows = _point_rows_plain(img, pts_meta, ref_patch, params, msl, clip_taps)
     return _unpack(torch.sum(rows, dim=0))
 
 
@@ -272,9 +301,9 @@ def _kernel():
     global _fn
     if _fn is None:
         # img, meta, ref, par, partials, ticket, out, H, W, M,
-        # max_scale_log2, device, stream
+        # max_scale_log2, clip_taps, device, stream
         _fn = _launch.load("photo_iteration", "photo_iteration_launch",
-                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                            + [ctypes.c_void_p])
     return _fn
 
@@ -310,13 +339,13 @@ def _diagnose(img, pts_meta, ref_patch, params, ps):
 
 
 def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
-                    max_scale_log2: int = 4):
+                    max_scale_log2: int = 4, clip_taps: bool = False):
     """One fused photometric iteration.
 
     img: (H, W) f32; pts_meta: (M, META_W); ref_patch: (M, ps, ps);
-    params: (1, PAR_W). Returns (HTH7 (7, 7), HTz7 (7,), err_sum (),
-    cnt ()). CPU tensors run the plain version; CUDA tensors launch the
-    kernel."""
+    params: (1, PAR_W); clip_taps: the sampling (module docstring).
+    Returns (HTH7 (7, 7), HTz7 (7,), err_sum (), cnt ()). CPU tensors
+    run the plain version; CUDA tensors launch the kernel."""
     dev = img.get_device()
     if not (dev >= 0 and img.is_cuda and ps == PS
             and pts_meta.get_device() == dev
@@ -331,7 +360,7 @@ def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
             and params.is_contiguous()):
         if _launch.on_cpu("photo_iteration", img):
             return photo_iteration_plain(img, pts_meta, ref_patch, params, ps,
-                                         max_scale_log2)
+                                         max_scale_log2, clip_taps)
         _diagnose(img, pts_meta, ref_patch, params, ps)
     H, W = img.shape
     M = pts_meta.shape[0]
@@ -342,8 +371,8 @@ def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
     err = (_fn or _kernel())(img.data_ptr(), pts_meta.data_ptr(),
                              ref_patch.data_ptr(), params.data_ptr(),
                              partials.data_ptr(), ticket.data_ptr(),
-                             tot.data_ptr(), H, W, M, max_scale_log2, dev,
-                             stream)
+                             tot.data_ptr(), H, W, M, max_scale_log2,
+                             int(clip_taps), dev, stream)
     if err:
         _launch.fail("photo_iteration", err)
     global LAUNCHES

@@ -242,6 +242,24 @@ def test_photo_iteration_kernel_matches_plain(H, W, M, with_dist):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,W,M", [(480, 752, 486), (96, 128, 9)])
+def test_photo_iteration_kernel_clip_taps_matches_plain(H, W, M):
+    """K2 in the sampling above 448 tracked points (clip_taps: each tap
+    clipped, no stride clamp) against its plain version: NTU-VIRAL's frame
+    and M, and a small frame where exponents up to 5 exceed the width's
+    clamp; the block-clip sampling of the same inputs differs."""
+    _need_card()
+    args = _photo_inputs(H, W, M, True, seed=M)
+    before = photo.LAUNCHES
+    got = photo.photo_iteration(*args, clip_taps=True)
+    torch.cuda.synchronize()
+    assert photo.LAUNCHES == before + 1
+    _assert_photo_close(got, photo.photo_iteration_plain(*args, clip_taps=True))
+    block = photo.photo_iteration(*args)
+    assert not torch.allclose(block[0], got[0], rtol=RTOL_PHOTO, atol=0.0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M", [0, 1, 7, 9, 396, 4096])
 @pytest.mark.parametrize("with_dist", [False, True])
 def test_photo_iteration_kernel_block_edges(M, with_dist):
