@@ -182,12 +182,19 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     points a scan in its own frame, the yaml's time
                     offsets; a ROS bag on the yaml's topics but for
                     mars_lvig) through `convert_rosbag` and the CLI with
-                    the yamls as shipped: split and fused, then the same
-                    pair under deterministic algorithms; ATE or drift
-                    gates, tracked points, fused vs split (0.0 m
-                    deterministic), 0 syncs in a replay, K1 once a frame,
-                    K2 20 / 15 / 0 / 20 a fused VIO frame; bag bytes,
-                    convert s, capture s, graph pool bytes, medians.
+                    the yamls as shipped: split and fused in turns
+                    (split, fused, fused, split), then the same pair
+                    under deterministic algorithms; ATE or drift gates
+                    and tracked points on the default runs (mars_lvig,
+                    whose start is chaotic: on its deterministic pair),
+                    fused vs split 0.0 m under deterministic algorithms
+                    and within the golden tolerances in the default
+                    pairs (avia, mars_lvig: reported), 0 syncs in a
+                    replay, K1 once a frame, K2 20 / 15 / 0 / 20 a fused
+                    VIO frame; bag bytes, convert s, capture s, graph
+                    pool bytes, each side's median over its two runs.
+                    The CPU tests (tests/test_torch_rigs*.py) import
+                    this script's rig assembly at a smaller size.
                     The sequences of 26, 29-32 and the rigs' recordings
                     are built one after another by one child process
                     (`chip_smoke.py --make-sequences DIR`, nice 19) and
@@ -221,12 +228,17 @@ the online backend on it twice (`backend_times`: fused ONLY_LIO with
 enable_online_refine, each run's median, p99 and max frame ms) and
 prints one `turns_backend` line. `--backend-times ROOT DIR` is one such
 process.
+
+    python3 chip_smoke.py --rig-spread NAME [RUNS]
+
+builds rig NAME's recording as the rigs phase does and prints how far
+RUNS default split runs part, and how far a deterministic run moves
+when every scan point moves by one ulp (`rig_spread`).
 """
 
 import contextlib
 import copy
 import datetime
-import functools
 import gc
 import hashlib
 import io
@@ -240,12 +252,8 @@ import sys
 import time
 import warnings
 
-# The port runs without JAX: make any import of it fail loudly here.
-sys.modules["jax"] = None
-sys.modules["fast_livo2_tpu"] = None
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 # H100 SXM published peaks (NVIDIA data sheet), at a 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -2940,9 +2948,14 @@ def phase_tools(seq):
 # pyramid levels x iterations on a pinhole camera, 0 on the fisheye
 # (its update runs in tensor ops, as in the JAX package).
 RIGS = {
+    # avia: four default (non-deterministic) split runs of one recording
+    # part by up to 22 mm on the card (`--rig-spread avia`, PERF.md, PR
+    # 10), above the golden 8e-3 m, so its default fused / split gap is
+    # reported; its deterministic pair is held to 0.0 m.
     "avia": dict(sensor="avia.yaml", camera="camera_pinhole.yaml",
                  scene="room", lines=24, per_line=1000, fov_deg=70.0,
-                 img_hz=10.0, seconds=4.0, degrade=True, bag=True),
+                 img_hz=10.0, seconds=4.0, degrade=True, bag=True,
+                 gate_default_pair=False),
     "ntu_viral": dict(sensor="ntu_viral.yaml", camera="camera_ntu_viral.yaml",
                       scene="room", lines=16, per_line=1024, fov_deg=360.0,
                       img_hz=10.0, seconds=4.0, bag=True),
@@ -2951,13 +2964,15 @@ RIGS = {
                     img_hz=40.0, seconds=4.0, bag=True),
     # the first 6 s of bench.py:435-450's outdoor flight (its scene,
     # waypoints, noise and biases), rendered at 2448 x 2048. Its LIVO
-    # run is chaotic there, in both packages (PERF.md, PR 10): two runs
-    # that differ only in the order of the card's float sums part by
-    # 13 cm, so it runs only the deterministic pair.
+    # start is chaotic, in both packages: on this recording the JAX
+    # package against itself with every scan point moved by one ulp
+    # parts by centimetres (PERF.md, PR 10), as the card's split and
+    # fused runs do. So only its deterministic pair is gated; the
+    # user's default (non-deterministic) runs are reported.
     "mars_lvig": dict(sensor="mars_lvig.yaml", camera="camera_mars_lvig.yaml",
                       scene="outdoor", lines=24, per_line=1000, fov_deg=70.0,
                       img_hz=10.0, seconds=6.0, max_range=80.0, bag=False,
-                      forms=("split_det", "fused_det")),
+                      gate_default=False, gate_default_pair=False),
 }
 RIG_ATE_GATES = {"avia": 0.05, "ntu_viral": 0.05,
                  "hilti22": 0.06}  # tests/test_pipeline_livo.py:166
@@ -2999,118 +3014,15 @@ def rig_extrinsics(cfg):
     return R, T, Rcl @ R.T, Pcl - Rcl @ R.T @ T
 
 
-def _texture_on_card(u, v, seed, hf_amp):
-    """io/synthetic.texture in torch: the same draws, on u, v's device."""
-    rng = np.random.default_rng(seed)
-    val = torch.zeros_like(u)
-    for _ in range(6):
-        fu, fv = rng.uniform(0.3, 3.0, 2)
-        ph_u, ph_v = rng.uniform(0, 2 * np.pi, 2)
-        amp = rng.uniform(0.3, 1.0)
-        val = val + amp * torch.sin(fu * u * 2 * np.pi + ph_u) * torch.sin(
-            fv * v * 2 * np.pi + ph_v)
-    out = 128.0 + 40.0 * val / 2.2
-    if hf_amp > 0.0:
-        hf = torch.zeros_like(u)
-        for _ in range(4):
-            fu, fv = rng.uniform(5.0, 25.0, 2)
-            ph_u, ph_v = rng.uniform(0, 2 * np.pi, 2)
-            hf = hf + torch.sin(fu * u * 2 * np.pi + ph_u) * torch.sin(
-                fv * v * 2 * np.pi + ph_v)
-        out = out + hf_amp * 10.0 * hf
-    return out
+def rig_frames(seq, cfg):
+    """io/synthetic's sequence (points and poses in the IMU frame, true
+    time) as the rig records it: each scan in the rig's LiDAR frame (p_L
+    = R^T (p_I - T)), each stream's stamps the true time less the yaml's
+    offset for it (load_sequence(cfg=) adds them back; the IMU's is
+    subtracted there, so added here); the ground truth in true time."""
+    from fast_livo2_tpu_torch.io import dataset
 
-
-def render_on_card(traj, planes, t, cam, exposure=1.0, R_ci=None, P_ci=None,
-                   cull_range=None, rays=None):
-    """io/synthetic.render_image on the card, in float64: the same rays
-    (models/camera.cam2world of every pixel), nearest front-face hit over
-    the scene's planes (bounded or not), io/synthetic.texture's shading.
-    The rigs' scenes hold only planes. A 2448 x 2048 frame of the outdoor
-    world's 145 surfaces takes about a minute in numpy on one core.
-    `rays`: a dict that keeps each camera's rays across frames."""
-    from fast_livo2_tpu_torch.io import synthetic
-    from fast_livo2_tpu_torch.models import camera as cam_mod
-
-    rays = {} if rays is None else rays
-    R_ci = np.eye(3) if R_ci is None else R_ci
-    P_ci = np.zeros(3) if P_ci is None else P_ci
-    R_wi, p_wi = traj.pose(t)
-    R_cw = R_ci @ R_wi.T
-    R_wc = R_cw.T
-    o = -R_wc @ (-R_cw @ p_wi + P_ci)
-    if cull_range is not None:
-        planes = synthetic.cull_surfaces(planes, o, cull_range)
-    if cam not in rays:
-        ys, xs = np.meshgrid(np.arange(cam.height), np.arange(cam.width),
-                             indexing="ij")
-        px = torch.from_numpy(np.stack([xs, ys], axis=-1).reshape(-1, 2)
-                              .astype(np.float32)).cuda()
-        rays[cam] = cam_mod.cam2world(cam, px).double()
-    d = rays[cam] @ torch.from_numpy(R_wc.T).cuda()
-    n = d.shape[0]
-    best_t = torch.full((n,), float("inf"), dtype=torch.float64, device="cuda")
-    best_i = torch.full((n,), -1, dtype=torch.int64, device="cuda")
-    for i, s in enumerate(planes):
-        check(isinstance(s, synthetic.Plane), f"render_on_card: {type(s)}")
-        denom = d @ torch.from_numpy(s.normal.astype(np.float64)).cuda()
-        tt = float((s.point - o) @ s.normal) / denom
-        ok = (denom < -1e-9) & (tt > 0.05)
-        rel = (torch.from_numpy(o - s.point).cuda()
-               + d * torch.where(ok, tt, 0.0)[:, None])
-        for ext, axis in ((s.u_extent, s.u_axis), (s.v_extent, s.v_axis)):
-            if ext is not None:
-                c = rel @ torch.from_numpy(axis.astype(np.float64)).cuda()
-                ok &= (c >= ext[0]) & (c <= ext[1])
-        tt = torch.where(ok, tt, float("inf"))
-        closer = tt < best_t
-        best_t = torch.where(closer, tt, best_t)
-        best_i = torch.where(closer, i, best_i)
-    img = torch.full((n,), 90.0, dtype=torch.float64, device="cuda")
-    for i, s in enumerate(planes):
-        m = best_i == i
-        rel = (torch.from_numpy(o - s.point).cuda()
-               + d[m] * best_t[m][:, None])
-        img[m] = _texture_on_card(
-            rel @ torch.from_numpy(s.u_axis.astype(np.float64)).cuda(),
-            rel @ torch.from_numpy(s.v_axis.astype(np.float64)).cuda(),
-            s.tex_seed, s.hf_amp)
-    img = torch.clamp(img * exposure, 0, 255).reshape(cam.height, cam.width)
-    return img.float().cpu().numpy()
-
-
-def rig_sequence(name):
-    """The rig's recording at its published width: io/synthetic's scene
-    rendered through the rig's camera at the camera yaml's full
-    resolution and extrinsics, at its camera rate; each scan written in
-    the rig's LiDAR frame (p_L = R^T (p_I - T)); each stream's stamps the
-    true time less the yaml's offset for it (load_sequence(cfg=) adds
-    them back); the ground truth in true time. Returns (sequence, cfg)."""
-    from fast_livo2_tpu_torch.io import dataset, synthetic
-    from fast_livo2_tpu_torch.models import camera as cam_mod
-    from fast_livo2_tpu_torch.utils.config import load_config
-
-    r = RIGS[name]
-    cfg = load_config(*rig_paths(name))
-    full = copy.deepcopy(cfg.camera)
-    full.scale = 1.0
-    R, T, R_ci, P_ci = rig_extrinsics(cfg)
-    kw = dict(DEGRADE) if r.get("degrade") else {}
-    if r["scene"] == "outdoor":
-        kw.update(OUTDOOR_NOISE, planes=synthetic.long_outdoor_scene(),
-                  traj=synthetic.WaypointTrajectory(
-                      synthetic.long_outdoor_waypoints(), duration=44.0))
-    render = synthetic.render_image
-    synthetic.render_image = functools.partial(render_on_card, rays={})
-    try:
-        seq = synthetic.make_sequence(
-            duration=r["seconds"], lidar_hz=10.0, img_hz=r["img_hz"],
-            imu_hz=200.0, cam=cam_mod.make_camera(full), seed=0,
-            n_lines=r["lines"], n_per_line=r["per_line"], render=True,
-            fov_deg=r["fov_deg"], R_ci=R_ci, P_ci=P_ci,
-            max_range=r.get("max_range"), **kw)
-    finally:
-        synthetic.render_image = render
+    R, T, _, _ = rig_extrinsics(cfg)
     off = cfg.time_offset
     return dataset.NpzSequence(
         imu_stamps=seq.imu_stamps + off.imu_time_offset,
@@ -3119,7 +3031,35 @@ def rig_sequence(name):
                 ((p.astype(np.float64) - T) @ R).astype(np.float32), o)
                for t, p, o in seq.scans],
         images=[(t - off.img_time_offset, im) for t, im in seq.images],
-        gt=seq.gt), cfg
+        gt=seq.gt)
+
+
+def rig_sequence(name, cfg, seconds=None, lines=None, per_line=None,
+                 seed=0):
+    """The rig's recording (rig_frames): io/synthetic's scene rendered
+    through cfg's camera at scale 1.0 (the shipped yaml: its full
+    resolution) with the rig's extrinsics and camera rate, scanned with
+    its LiDAR pattern. `seconds`, `lines`, `per_line`: RIGS' unless
+    given (the CPU tests' smaller runs)."""
+    from fast_livo2_tpu_torch.io import synthetic
+    from fast_livo2_tpu_torch.models import camera as cam_mod
+
+    r = RIGS[name]
+    full = copy.deepcopy(cfg.camera)
+    full.scale = 1.0
+    _, _, R_ci, P_ci = rig_extrinsics(cfg)
+    kw = dict(DEGRADE) if r.get("degrade") else {}
+    if r["scene"] == "outdoor":
+        kw.update(OUTDOOR_NOISE, planes=synthetic.long_outdoor_scene(),
+                  traj=synthetic.WaypointTrajectory(
+                      synthetic.long_outdoor_waypoints(), duration=44.0))
+    seq = synthetic.make_sequence(
+        duration=seconds or r["seconds"], lidar_hz=10.0, img_hz=r["img_hz"],
+        imu_hz=200.0, cam=cam_mod.make_camera(full), seed=seed,
+        n_lines=lines or r["lines"], n_per_line=per_line or r["per_line"],
+        render=True, fov_deg=r["fov_deg"], R_ci=R_ci, P_ci=P_ci,
+        max_range=r.get("max_range"), **kw)
+    return rig_frames(seq, cfg)
 
 
 def _pointcloud2(fields, t, values):
@@ -3193,8 +3133,10 @@ def make_rig(name, path):
     """The rig's recording under `path`: rig.bag (the port's write_bag) and
     gt.npz, or (no bag) an npz sequence directory `seq` with gt.npz."""
     from fast_livo2_tpu_torch.io import dataset, rosbag
+    from fast_livo2_tpu_torch.utils.config import load_config
 
-    seq, cfg = rig_sequence(name)
+    cfg = load_config(*rig_paths(name))
+    seq = rig_sequence(name, cfg)
     if RIGS[name]["bag"]:
         os.makedirs(path)
         rosbag.write_bag(os.path.join(path, "rig.bag"),
@@ -3267,23 +3209,123 @@ def cli_rig_run(config, camera, seq_dir, out):
     return summary, wall_s, got
 
 
+def rig_seq_dir(name, cfg, built, root, out):
+    """The rig's recording under `built` as the CLI reads it: a bag
+    converted by `python -m fast_livo2_tpu_torch.convert_rosbag` with the
+    yaml's lidar type, blind, point_filter_num and topics, in a
+    subprocess, into root/seq (the convert s, bag bytes and converter's
+    line into `out`); or (no bag) the npz sequence as built."""
+    if not RIGS[name]["bag"]:
+        return os.path.join(built, "seq")
+    bag = os.path.join(built, "rig.bag")
+    seq_dir = os.path.join(root, "seq")
+    c, p = cfg.common, cfg.preprocess
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fast_livo2_tpu_torch.convert_rosbag", bag,
+         seq_dir, "--lidar-type", str(p.lidar_type), "--blind",
+         str(p.blind), "--filter-num", str(p.point_filter_num),
+         "--lid-topic", c.lid_topic, "--imu-topic", c.imu_topic,
+         "--img-topic", c.img_topic],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    out["convert_s"] = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"rig {name}: convert_rosbag failed:\n{proc.stderr[-3000:]}")
+    out["bag_bytes"] = os.path.getsize(bag)
+    out["converter_stdout"] = proc.stdout.strip()
+    shutil.copy(os.path.join(built, "gt.npz"), seq_dir)
+    return seq_dir
+
+
+def ulp_copy(seq_dir, out):
+    """A copy of the npz sequence seq_dir with every scan point moved by
+    one float32 ulp (toward +inf)."""
+    shutil.copytree(seq_dir, out)
+    with np.load(os.path.join(seq_dir, "scans.npz")) as z:
+        scans = dict(z)
+    scans["points"] = np.nextafter(scans["points"], np.float32(np.inf))
+    np.savez_compressed(os.path.join(out, "scans.npz"), **scans)
+
+
+def rig_spread(name, runs):
+    """How far the card's split runs of a rig part (`chip_smoke.py
+    --rig-spread NAME [RUNS]`): its recording built and converted as the
+    rigs phase does, then `runs` default (non-deterministic) split runs
+    through the CLI, and under deterministic algorithms one run of the
+    recording and one of a copy with every scan point moved by one ulp.
+    Prints one line: each run's ATE, and each run's gap from the first
+    default run and the deterministic one-ulp run's from its base run
+    (max |dp|, max rotation-entry gap, the first frame where |dp| > 1
+    mm or the tracked-point count differs); the trajectories go to
+    chiprun_out/rig_spread_NAME.npz."""
+    from fast_livo2_tpu_torch.io import synthetic
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    sensor, camera = rig_paths(name)
+    cfg = load_config(sensor, camera)
+    root = os.path.join(REPO, "build", "rig_spread", name)
+    shutil.rmtree(root, ignore_errors=True)
+    make_rig(name, os.path.join(root, "rec"))
+    out = {"phase": f"rig_spread_{name}"}
+    seq_dir = rig_seq_dir(name, cfg, os.path.join(root, "rec"), root, out)
+    ulp_copy(seq_dir, os.path.join(root, "ulp"))
+    g = np.load(os.path.join(root, "rec", "gt.npz"))
+    gt = [(t, None, p) for t, p in zip(g["stamps"], g["pos"])]
+    got = {}
+    for form in [f"split_{i}" for i in range(runs)] + ["det", "det_ulp"]:
+        with (deterministic() if form.startswith("det")
+              else contextlib.nullcontext()):
+            _, _, got[form] = cli_rig_run(
+                sensor, camera, os.path.join(root, "ulp")
+                if form == "det_ulp" else seq_dir,
+                os.path.join(root, f"out_{form}"))
+    pos = {k: np.array([p for _, _, p in v["traj"]]) for k, v in got.items()}
+    rot = {k: np.array([R for _, R, _ in v["traj"]]) for k, v in got.items()}
+
+    def gap(a, b):
+        dp = np.linalg.norm(pos[a] - pos[b], axis=1)
+        over = np.flatnonzero(dp > 1e-3)
+        tracked = np.flatnonzero(np.array(got[a]["n_tracked"])
+                                 != np.array(got[b]["n_tracked"]))
+        return {"max_dp_m": float(dp.max()),
+                "max_dR": float(np.abs(rot[a] - rot[b]).max()),
+                "first_frame_dp_over_1mm": int(over[0]) if len(over) else None,
+                "first_frame_n_tracked_differs":
+                    int(tracked[0]) if len(tracked) else None}
+
+    out["ate_m"] = {k: synthetic.ate_rmse(
+        [(t, p) for t, _, p in v["traj"]], gt) for k, v in got.items()}
+    out["vs_split_0"] = {k: gap(k, "split_0") for k in got if k != "split_0"}
+    out["det_ulp_vs_det"] = gap("det_ulp", "det")
+    out["nvidia_smi"] = nvidia_smi()
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    np.savez(os.path.join(REPO, "chiprun_out", f"rig_spread_{name}.npz"),
+             **{f"pos_{k}": v for k, v in pos.items()},
+             **{f"tracked_{k}": np.array(got[k]["n_tracked"]) for k in got})
+    emit(out)
+
+
 def phase_rig(name, built, ready):
     """One rig from its recording to a trajectory on the card: (bag rigs)
     `python -m fast_livo2_tpu_torch.convert_rosbag` with the yaml's lidar
     type, blind, point_filter_num and topics, in a subprocess; then the
-    CLI with the shipped yaml pair in each of the rig's forms: split and
-    fused (a copy of the yaml with tpu.fused_frame, one CUDA graph a
-    frame), timed, then the same pair under deterministic algorithms
-    (mars_lvig: only that pair, RIGS says why). Gates on the first pair:
-    ATE (ground truth interpolated at each pose) < 0.05 m (avia,
-    ntu_viral) or 0.06 m (hilti22), drift <= 0.5 % of the path
-    (mars_lvig); mean tracked points > 20 from frame 3 on (but mars_lvig:
-    reported); fused vs split within the golden tolerances, the
-    deterministic pair 0.0 m; one graph, 0 host syncs in every replayed
-    frame; K1 once a frame; K2 on every fused VIO frame levels x
-    iterations times (0 on the fisheye) and on the split run once an
-    iteration that took effect. The phase's line is printed before a
-    failed gate fails it. Returns the fused run's launches."""
+    CLI with the shipped yaml pair, split and fused (a copy of the yaml
+    with tpu.fused_frame, one CUDA graph a frame) in turns (split, fused,
+    fused, split: each side's median over its two runs), then the same
+    pair under deterministic algorithms. Gates on the default runs
+    (mars_lvig: on the deterministic pair, RIGS says why): ATE (ground
+    truth interpolated at each pose) < 0.05 m (avia, ntu_viral) or 0.06
+    m (hilti22), mean tracked points > 20 from frame 3 on; drift <= 0.5
+    % of the path (mars_lvig, whose tracked points are reported). On
+    every rig: fused vs split 0.0 m apart under deterministic algorithms
+    (as parity_fused compares the frame forms); the default pairs within
+    the golden tolerances, but for avia and mars_lvig, whose default
+    runs part from one another by more (RIGS says why), where the gap is
+    reported; one graph, 0 host syncs in every replayed frame; K1
+    once a frame; K2 on every fused VIO frame levels x iterations times
+    (0 on the fisheye) and on a split run once an iteration that took
+    effect. The phase's line is printed before a failed gate fails it.
+    Returns the first fused run's launches."""
     from fast_livo2_tpu_torch.io import synthetic
     from fast_livo2_tpu_torch.utils.config import load_config
 
@@ -3298,32 +3340,13 @@ def phase_rig(name, built, ready):
                     f"{r['per_line']} over {r['fov_deg']} deg",
            "camera": [cfg.camera.cam_width, cfg.camera.cam_height,
                       cfg.camera.scale, cfg.camera.cam_model]}
-    if r["bag"]:
-        bag = os.path.join(built, "rig.bag")
-        seq_dir = os.path.join(root, "seq")
-        c, p = cfg.common, cfg.preprocess
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "fast_livo2_tpu_torch.convert_rosbag", bag,
-             seq_dir, "--lidar-type", str(p.lidar_type), "--blind",
-             str(p.blind), "--filter-num", str(p.point_filter_num),
-             "--lid-topic", c.lid_topic, "--imu-topic", c.imu_topic,
-             "--img-topic", c.img_topic],
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        out["convert_s"] = time.perf_counter() - t0
-        check(proc.returncode == 0,
-              f"rig {name}: convert_rosbag failed:\n{proc.stderr[-3000:]}")
-        out["bag_bytes"] = os.path.getsize(bag)
-        out["converter_stdout"] = proc.stdout.strip()
-        shutil.copy(os.path.join(built, "gt.npz"), seq_dir)
-    else:
-        seq_dir = os.path.join(built, "seq")
+    seq_dir = rig_seq_dir(name, cfg, built, root, out)
     g = np.load(os.path.join(built, "gt.npz"))
     gt = [(t, None, p) for t, p in zip(g["stamps"], g["pos"])]
     path = float(np.sum(np.linalg.norm(np.diff(g["pos"], axis=0), axis=1)))
     fused_cfg = os.path.join(root, "fused.yaml")
     fused_yaml(sensor, fused_cfg)
-    forms = r.get("forms", ("split", "fused", "split_det", "fused_det"))
+    forms = ("split", "fused", "fused_2", "split_2", "split_det", "fused_det")
     runs = {}
     for form in forms:
         ctx = (deterministic() if form.endswith("_det")
@@ -3336,9 +3359,10 @@ def phase_rig(name, built, ready):
               f"rig {name} {form}: CLI ran {summary['frames']} "
               f"{summary['mode']} frames")
         runs[form] = dict(got, summary=summary, wall_s=wall_s)
-    split, fused = forms[0], forms[1]
-    per_frame = (runs[fused]["levels_x_iterations"]
-                 if runs[fused]["fused_k2"] else 0)
+    per_frame = (runs["fused"]["levels_x_iterations"]
+                 if runs["fused"]["fused_k2"] else 0)
+    gated = [f for f in forms if f.endswith("_det")
+             != r.get("gate_default", True)]
     failed = []
 
     def gate(cond, msg):
@@ -3355,8 +3379,9 @@ def phase_rig(name, built, ready):
         nums = {"frames": frames, "ate_rmse_m": ate,
                 "cli_ate_rmse_m": x["summary"].get("ate_rmse_m"),
                 "drift_pct": 100.0 * ate / path, "mean_n_tracked": tracked,
-                "cli_wall_s": x["wall_s"], "launches": x["launches"]}
-        if form in (split, fused):
+                "cli_wall_s": x["wall_s"], "launches": x["launches"],
+                "gated": form in gated}
+        if form in gated:
             if name in RIG_ATE_GATES:
                 gate(ate < RIG_ATE_GATES[name], f"rig {name} {form}: ATE "
                                                 f"{ate} m >= {RIG_ATE_GATES[name]} m")
@@ -3375,17 +3400,27 @@ def phase_rig(name, built, ready):
             nums.update(fused_checks(f"rig {name} {form}", x, frames - 1,
                                      per_frame))
         out[form] = nums
-    for a, b in dict.fromkeys(((fused, split), ("fused_det", "split_det"))):
+    for a, b in (("fused", "split"), ("fused_2", "split_2"),
+                 ("fused_det", "split_det")):
         dp, dR = traj_diff(runs[a]["traj"], runs[b]["traj"])
-        exact = a.endswith("_det")
-        gate(dp == dR == 0.0 if exact else dp <= POS_TOL_M and dR <= ROT_TOL,
-             f"rig {name}: {a} vs {b} {dp} m, {dR}")
+        if a.endswith("_det"):
+            gate(dp == dR == 0.0, f"rig {name}: {a} vs {b} {dp} m, {dR}")
+        elif r.get("gate_default_pair", True):
+            gate(dp <= POS_TOL_M and dR <= ROT_TOL,
+                 f"rig {name}: {a} vs {b} {dp} m, {dR}")
         out[f"{a}_vs_{b}"] = {"max_pos_diff_m": dp, "max_rot_diff": dR}
+    # each side's median frame over its two runs, taken in turns (a
+    # split run's first frame and a fused run's first two are set-up)
+    out["median_frame_ms_in_turns"] = {
+        "split": statistics.median(runs["split"]["ms"][1:]
+                                   + runs["split_2"]["ms"][1:]),
+        "fused": statistics.median(runs["fused"]["ms"][2:]
+                                   + runs["fused_2"]["ms"][2:])}
     out.update(path_m=path, k2_per_fused_vio_frame=per_frame,
                nvidia_smi=nvidia_smi(), failed=failed)
     emit(out)
     check(not failed, "; ".join(failed))
-    return runs[fused]["launches"]
+    return runs["fused"]["launches"]
 
 
 def phase_rigs(started):
@@ -3489,6 +3524,11 @@ def run_turns(other, what):
 
 
 def main(argv):
+    # The port runs without JAX: make any import of it fail loudly here.
+    # (Here and not at import: the CPU tests import this script's rig
+    # assembly beside the JAX package.)
+    sys.modules["jax"] = None
+    sys.modules["fast_livo2_tpu"] = None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs only on a GPU", file=sys.stderr)
@@ -3513,6 +3553,9 @@ def main(argv):
         return 0
     if mode == "--shard-rank":
         return shard_rank(argv[1:])
+    if mode == "--rig-spread":
+        rig_spread(argv[1], int(argv[2]) if len(argv) > 2 else 4)
+        return 0
     if mode == "--make-sequences":
         os.nice(19)  # behind the card's phases on the host's cores
         make_sequences(argv[1])

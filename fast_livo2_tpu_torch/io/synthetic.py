@@ -533,6 +533,52 @@ def ray_hits(origins: np.ndarray, dirs: np.ndarray, surfaces):
     return np.where(hit, best_t, 0.0), best_i, hit
 
 
+def _tiled_ray_hits(origin, dirs, surfaces, ys, xs, tile=32):
+    """ray_hits of a camera's rays (one origin; pixel rows `ys`, columns
+    `xs`), each bounded surface intersected only with the rays of the
+    tile x tile pixel tiles whose cone meets its bounding sphere: the
+    same per-ray arithmetic, so the same hits, where the outdoor world's
+    ~145 bounded surfaces would otherwise each meet every ray of a
+    2448 x 2048 frame. Unbounded surfaces, and those around the origin,
+    meet every ray."""
+    n = dirs.shape[0]
+    spheres = [_bounding_sphere(s) for s in surfaces]
+    spheres = [bs if bs is not None and np.linalg.norm(bs[0] - origin) > bs[1]
+               else None for bs in spheres]
+    if any(bs is not None for bs in spheres):
+        tid = ((ys // tile) * -(-xs.shape[1] // tile) + xs // tile).reshape(-1)
+        order = np.argsort(tid, kind="stable")
+        counts = np.bincount(tid)
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        un = dirs[order] / np.linalg.norm(dirs[order], axis=1, keepdims=True)
+        cdir = np.add.reduceat(un, starts[:-1], axis=0)
+        cdir /= np.linalg.norm(cdir, axis=1, keepdims=True)
+        cos = np.einsum("ij,ij->i", un, np.repeat(cdir, counts, axis=0))
+        spread = np.maximum.reduceat(np.arccos(np.clip(cos, -1, 1)),
+                                     starts[:-1])
+    best_t = np.full(n, np.inf)
+    best_i = np.full(n, -1, np.int32)
+    for i, (s, bs) in enumerate(zip(surfaces, spheres)):
+        rays = slice(None)
+        if bs is not None:
+            v = bs[0] - origin
+            dist = np.linalg.norm(v)
+            ang = np.arccos(np.clip(cdir @ (v / dist), -1, 1))
+            tiles = np.flatnonzero(
+                ang <= spread + np.arcsin(bs[1] / dist) + 1e-6)
+            if not len(tiles):
+                continue
+            rays = np.sort(np.concatenate(
+                [order[starts[k]:starts[k + 1]] for k in tiles]))
+        d = dirs[rays]
+        t = s.intersect(np.broadcast_to(origin, d.shape), d)
+        ok = t < best_t[rays]
+        best_t[rays] = np.where(ok, t, best_t[rays])
+        best_i[rays] = np.where(ok, i, best_i[rays])
+    hit = best_i >= 0
+    return np.where(hit, best_t, 0.0), best_i, hit
+
+
 def lidar_scan(traj: Trajectory, planes, t_begin: float, period: float,
                n_lines: int, n_per_line: int, rng, range_noise=0.01,
                fov_deg=70.0, max_range=None, dropout=0.0,
@@ -631,7 +677,7 @@ def render_image(traj: Trajectory, planes, t: float, cam, exposure: float = 1.0,
     d_cam = cam_mod.cam2world(cam, torch.from_numpy(px)).numpy().astype(np.float64)
     d_w = d_cam @ R_wc.T
     o = np.broadcast_to(cam_origin, d_w.shape)
-    tt, pi, hit = ray_hits(o, d_w, planes)
+    tt, pi, hit = _tiled_ray_hits(cam_origin, d_w, planes, ys, xs)
     pw = o + d_w * tt[:, None]
     img = np.full(d_w.shape[0], 90.0)
     for i, pl in enumerate(planes):

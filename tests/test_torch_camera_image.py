@@ -156,3 +156,40 @@ def test_render_image_matches_jax(model):
     assert a.shape == b.shape == (48, 64) and a.dtype == np.float32
     close = np.abs(a - b) <= DN_ATOL
     assert close.mean() >= 0.999, f"{(~close).sum()} pixels differ"
+
+
+@pytest.mark.parametrize("scene,model", [("outdoor", "radtan"),
+                                         ("hard", "equidistant")])
+def test_render_tile_culling_keeps_every_hit(scene, model):
+    """render_image intersects each bounded surface only with the pixel
+    tiles whose cone meets it (synthetic._tiled_ray_hits): at poses
+    along each scene's path, its hits are ray_hits' over every ray and
+    surface, bit for bit, at two tile sizes."""
+    cfg = _cam_cfg(model)
+    cfg.cam_width, cfg.cam_height = 96, 80
+    cfg.cam_fx = cfg.cam_fy = 60.0
+    cfg.cam_cx, cfg.cam_cy = 48.0, 40.0
+    cam = tcam.make_camera(cfg)
+    if scene == "outdoor":
+        planes = tsyn.long_outdoor_scene()
+        traj = tsyn.WaypointTrajectory(tsyn.long_outdoor_waypoints(),
+                                       duration=44.0)
+        times = (0.0, 3.0, 17.5, 40.0)
+    else:
+        planes, traj, times = tsyn.hard_scene(), tsyn.Trajectory(), (0.4, 2.1)
+    ys, xs = np.meshgrid(np.arange(cam.height), np.arange(cam.width),
+                         indexing="ij")
+    px = np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float32)
+    d_cam = tcam.cam2world(cam, torch.from_numpy(px)).numpy().astype(np.float64)
+    culled = 0
+    for t in times:
+        R_wi, p_wi = traj.pose(t)
+        R_wc = (tsyn.R_CI_FORWARD @ R_wi.T).T
+        d_w = d_cam @ R_wc.T
+        want = tsyn.ray_hits(np.broadcast_to(p_wi, d_w.shape), d_w, planes)
+        for tile in (8, 32):
+            got = tsyn._tiled_ray_hits(p_wi, d_w, planes, ys, xs, tile=tile)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        culled += len(planes) - len(np.unique(want[1]))
+    assert culled > 0

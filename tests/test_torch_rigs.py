@@ -1,38 +1,31 @@
 """The four sensor rigs the repo ships (configs/: avia + camera_pinhole,
 ntu_viral + camera_ntu_viral, hilti22 + camera_fisheye_hilti22,
-mars_lvig + camera_mars_lvig), each assembled as that rig records it, and
-the checks of that assembly that need no pipeline run. The per-rig
-parity runs (both packages' LIVOPipeline on one rig's sequence) are in
+mars_lvig + camera_mars_lvig), each assembled as that rig records it by
+chip_smoke.py's rig assembly (RIGS, rig_sequence, rig_frames,
+rig_bag_messages: one copy, which the card's rigs phase runs at the
+rigs' published sizes and these tests at a smaller one), and the checks
+of that assembly that need no pipeline run. The per-rig parity runs
+(both packages' LIVOPipeline on one rig's sequence) are in
 tests/test_torch_rigs_<rig>.py and take their sequence from `rig_run`
 here.
 
-A rig's sequence (`rig_sequence`): io/synthetic renders the scene
-through the rig's camera and extrinsics at its camera rate and scans it
-with the rig's LiDAR pattern; io/synthetic gives points and poses in
-the IMU frame, so each scan is written in the rig's LiDAR frame, p_L =
-R^T (p_I - T) with the sensor yaml's extrinsic_R (R) and extrinsic_T (T)
-(LiDAR to IMU, as core/pipeline.py reads them), and the camera renders
-at R_ci = Rcl R^T, P_ci = Pcl - Rcl R^T T (Rcl, Pcl: camera from LiDAR).
-Each stream's stamps are the true time minus the config's offset for
-that stream, which io/dataset.load_sequence(cfg=) adds back (IMU: plus,
-as it subtracts imu_time_offset). The rigs with a bag (avia: Livox
-CustomMsg; ntu_viral: Ouster PointCloud2; hilti22: Hesai XT32
-PointCloud2; mono8 images and Imu on the yaml's topics) go through the
-port's io/rosbag.write_bag and convert_rosbag.build_sequence with the
-yaml's lidar type, blind and point_filter_num; mars_lvig is saved as an
-npz sequence. The yamls are used as shipped, except, at the CPU tests'
-size, the capacities (`shrink`) and the camera, rendered at its
-processed size (`processed_camera`: scale 1.0, the intrinsics
-pre-scaled).
+The rigs with a bag (avia: Livox CustomMsg; ntu_viral: Ouster
+PointCloud2; hilti22: Hesai XT32 PointCloud2; mono8 images and Imu on
+the yaml's topics) go through the port's io/rosbag.write_bag and
+convert_rosbag.build_sequence with the yaml's lidar type, blind and
+point_filter_num; mars_lvig is saved as an npz sequence. The yamls are
+used as shipped, except, at the CPU tests' size, the capacities
+(`shrink`) and the camera, rendered at its processed size
+(`processed_camera`: scale 1.0, the intrinsics pre-scaled).
 """
 
 import os
-from types import SimpleNamespace as NS
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from fast_livo2_tpu_torch import convert_rosbag as tconv
 from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
 from fast_livo2_tpu_torch.io import dataset, synthetic
@@ -43,47 +36,16 @@ from fast_livo2_tpu_torch.utils.config import load_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POS_TOL_M, ROT_TOL = 8e-3, 4e-3  # tests/test_golden_trace.py
 
-# Each rig: its config pair, scene, LiDAR pattern at the CPU tests' size
-# (lines x points over a horizontal field of view) and camera rate. The
-# size is 12 x 500 points a scan where the run is stable at it; avia and
-# hilti22 keep more of their own patterns (24 x 1,000, 32 x 1,000), as at
-# 12 x 500 their runs are chaotic: the JAX package against itself with
-# every scan point moved by one ulp parts by 1.4 cm (avia) and its
-# hilti22 run loses the map (ATE 7 cm; a 0.4 m voxel collects too few
-# points a scan).
-RIGS = {
-    "avia": dict(sensor="avia.yaml", camera="camera_pinhole.yaml",
-                 scene="room", lines=24, per_line=1000, fov_deg=70.0,
-                 img_hz=10.0, degrade=True),
-    "ntu_viral": dict(sensor="ntu_viral.yaml", camera="camera_ntu_viral.yaml",
-                      scene="room", lines=12, per_line=500, fov_deg=360.0,
-                      img_hz=10.0),
-    "hilti22": dict(sensor="hilti22.yaml",
-                    camera="camera_fisheye_hilti22.yaml", scene="room",
-                    lines=32, per_line=1000, fov_deg=360.0, img_hz=40.0),
-    "mars_lvig": dict(sensor="mars_lvig.yaml", camera="camera_mars_lvig.yaml",
-                      scene="outdoor", lines=12, per_line=500, fov_deg=70.0,
-                      img_hz=10.0, max_range=80.0),
-}
+# Each rig's LiDAR pattern at the CPU tests' size (lines x points; the
+# rest of each rig, chip_smoke.RIGS). 12 x 500 points a scan where the
+# run is stable at it; avia and hilti22 keep more of their own patterns
+# (24 x 1,000, 32 x 1,000), as at 12 x 500 their runs are chaotic: the
+# JAX package against itself with every scan point moved by one ulp
+# parts by 1.4 cm (avia) and its hilti22 run loses the map (ATE 7 cm; a
+# 0.4 m voxel collects too few points a scan).
+PATTERNS = {"avia": (24, 1000), "ntu_viral": (12, 500),
+            "hilti22": (32, 1000), "mars_lvig": (12, 500)}
 SECONDS = 2.0  # the CPU tests' run
-# bench.py:142-151's DEGRADE noise (the avia rig's)
-DEGRADE = dict(img_photon_noise=1.2, img_read_noise=2.5, img_blur_px=0.6,
-               range_noise=0.02, lidar_dropout=0.05, lidar_outlier_frac=0.005)
-# bench.py:435-450's outdoor noise and biases (the mars_lvig rig's)
-OUTDOOR = dict(gyr_noise=2e-3, acc_noise=2e-2, range_noise=0.03,
-               bias_g=np.array([0.002, -0.0015, 0.001]),
-               bias_a=np.array([0.05, -0.03, 0.08]), lidar_dropout=0.05,
-               lidar_outlier_frac=0.005)
-# PointCloud2 layouts (name, offset, datatype, numpy type): ouster_ros's
-# point (x y z, intensity, t ns from the scan start, ring; 48 bytes) and
-# hesai_ros's XT32 point (x y z, intensity, timestamp s, ring; 48 bytes).
-OUSTER_FIELDS = (("x", 0, 7, "f4"), ("y", 4, 7, "f4"), ("z", 8, 7, "f4"),
-                 ("intensity", 16, 7, "f4"), ("t", 20, 6, "u4"),
-                 ("ring", 26, 2, "u1"))
-XT32_FIELDS = (("x", 0, 7, "f4"), ("y", 4, 7, "f4"), ("z", 8, 7, "f4"),
-               ("intensity", 16, 7, "f4"), ("timestamp", 24, 8, "f8"),
-               ("ring", 32, 4, "u2"))
-POINT_STEP = 48
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -95,12 +57,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
-
-
-def config_paths(rig):
-    r = RIGS[rig]
-    return (os.path.join(ROOT, "configs", r["sensor"]),
-            os.path.join(ROOT, "configs", r["camera"]))
 
 
 def processed_camera(cfg):
@@ -128,173 +84,14 @@ def shrink(cfg):
 def rig_config(rig, loader=load_config):
     """The rig's pair through `loader` (either package's load_config) at
     the CPU tests' size."""
-    return shrink(processed_camera(loader(*config_paths(rig))))
+    return shrink(processed_camera(loader(*cs.rig_paths(rig))))
 
 
-def extrinsics(cfg):
-    """(R, T, R_ci, P_ci): LiDAR to IMU, and the camera from the IMU."""
-    e = cfg.extrin_calib
-    R = np.array(e.extrinsic_R, np.float64).reshape(3, 3)
-    T = np.array(e.extrinsic_T, np.float64)
-    Rcl = np.array(e.Rcl, np.float64).reshape(3, 3)
-    Pcl = np.array(e.Pcl, np.float64)
-    return R, T, Rcl @ R.T, Pcl - Rcl @ R.T @ T
-
-
-def render_tiled(traj, planes, t, cam, exposure=1.0, R_ci=None, P_ci=None,
-                 cull_range=None, tile=32):
-    """io/synthetic.render_image, bit for bit, with each bounded surface
-    intersected only with the rays of the 32 x 32 pixel tiles whose cone
-    meets its bounding sphere (the outdoor world's 145 surfaces otherwise
-    cost seconds a frame; the room's unbounded walls gain nothing)."""
-    R_ci = np.eye(3) if R_ci is None else R_ci
-    P_ci = np.zeros(3) if P_ci is None else P_ci
-    R_wi, p_wi = traj.pose(t)
-    R_cw = R_ci @ R_wi.T
-    R_wc = R_cw.T
-    o = -R_wc @ (-R_cw @ p_wi + P_ci)
-    if cull_range is not None:
-        planes = synthetic.cull_surfaces(planes, o, cull_range)
-    H, W = cam.height, cam.width
-    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    px = np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float32)
-    d = (cam_mod.cam2world(cam, torch.from_numpy(px)).numpy()
-         .astype(np.float64) @ R_wc.T)
-    tid = ((ys // tile) * -(-W // tile) + xs // tile).reshape(-1)
-    order = np.argsort(tid, kind="stable")
-    counts = np.bincount(tid)
-    starts = np.concatenate([[0], np.cumsum(counts)])
-    un = d[order] / np.linalg.norm(d[order], axis=1, keepdims=True)
-    cdir = np.add.reduceat(un, starts[:-1], axis=0)
-    cdir /= np.linalg.norm(cdir, axis=1, keepdims=True)
-    cos = np.einsum("ij,ij->i", un, np.repeat(cdir, counts, axis=0))
-    spread = np.maximum.reduceat(np.arccos(np.clip(cos, -1, 1)), starts[:-1])
-    n = len(d)
-    best_t, best_i = np.full(n, np.inf), np.full(n, -1, np.int32)
-    for i, s in enumerate(planes):
-        bs = synthetic._bounding_sphere(s)
-        idx = None
-        if bs is not None and np.linalg.norm(bs[0] - o) > bs[1]:
-            v = bs[0] - o
-            dist = np.linalg.norm(v)
-            ang = np.arccos(np.clip(cdir @ (v / dist), -1, 1))
-            tiles = np.flatnonzero(ang <= spread + np.arcsin(bs[1] / dist) + 1e-6)
-            if not len(tiles):
-                continue
-            idx = np.sort(np.concatenate([order[starts[k]:starts[k + 1]]
-                                          for k in tiles]))
-        rays = np.arange(n) if idx is None else idx
-        tt = s.intersect(np.broadcast_to(o, (len(rays), 3)), d[rays])
-        ok = tt < best_t[rays]
-        best_t[rays] = np.where(ok, tt, best_t[rays])
-        best_i[rays] = np.where(ok, i, best_i[rays])
-    hit = best_i >= 0
-    pw = o + d * np.where(hit, best_t, 0.0)[:, None]
-    img = np.full(n, 90.0)
-    for i, pl in enumerate(planes):
-        m = hit & (best_i == i)
-        if m.any():
-            img[m] = pl.shade(pw[m])
-    return np.clip(img * exposure, 0, 255).reshape(H, W).astype(np.float32)
-
-
-def rig_sequence(rig, cfg, seconds=SECONDS, lines=None, per_line=None,
-                 seed=0):
-    """The rig's recording: scans in its LiDAR frame, images through its
-    camera (cfg.camera at scale 1.0, i.e. the size the images have), each
-    stream's stamps less its configured offset; gt in true time."""
-    r = RIGS[rig]
-    R, T, R_ci, P_ci = extrinsics(cfg)
-    kw = dict(DEGRADE) if r.get("degrade") else {}
-    render = synthetic.render_image
-    if r["scene"] == "outdoor":
-        kw.update(OUTDOOR, planes=synthetic.long_outdoor_scene(),
-                  traj=synthetic.WaypointTrajectory(
-                      synthetic.long_outdoor_waypoints(), duration=44.0))
-        synthetic.render_image = render_tiled
-    try:
-        seq = synthetic.make_sequence(
-            duration=seconds, lidar_hz=10.0, img_hz=r["img_hz"], imu_hz=200.0,
-            cam=cam_mod.make_camera(cfg.camera), seed=seed,
-            n_lines=lines or r["lines"], n_per_line=per_line or r["per_line"],
-            render=True, fov_deg=r["fov_deg"], R_ci=R_ci, P_ci=P_ci,
-            max_range=r.get("max_range"), **kw)
-    finally:
-        synthetic.render_image = render
-    off = cfg.time_offset
-    return dataset.NpzSequence(
-        imu_stamps=seq.imu_stamps + off.imu_time_offset,
-        imu_gyr=seq.imu_gyr, imu_acc=seq.imu_acc,
-        scans=[(t - off.lidar_time_offset,
-                ((p.astype(np.float64) - T) @ R).astype(np.float32), o)
-               for t, p, o in seq.scans],
-        images=[(t - off.img_time_offset, im) for t, im in seq.images],
-        gt=seq.gt)
-
-
-def _pointcloud2(fields, t, values):
-    """A PointCloud2 of one scan: `values` maps field name to its column."""
-    dt = np.dtype({"names": [f[0] for f in fields],
-                   "formats": [f[3] for f in fields],
-                   "offsets": [f[1] for f in fields], "itemsize": POINT_STEP})
-    n = len(values["x"])
-    arr = np.zeros(n, dt)
-    for name in dt.names:
-        arr[name] = values[name]
-    return NS(header=tbag.make_header(t, "lidar"), height=1, width=n,
-              fields=[NS(name=f[0], offset=f[1], datatype=f[2], count=1)
-                      for f in fields],
-              is_bigendian=False, point_step=POINT_STEP,
-              row_step=POINT_STEP * n, data=arr.tobytes(), is_dense=True)
-
-
-def lidar_message(lidar_type, t, pts, offs, lines):
-    """(message type, message) of one scan as the rig's driver publishes
-    it: Livox CustomMsg (type 1), Ouster (3) or Hesai XT32 (5)
-    PointCloud2; each point's line from its place in the scan."""
-    ring = np.arange(len(pts)) % lines
-    if lidar_type == 1:
-        arr = np.zeros(len(pts), tbag._LIVOX_PT)
-        arr["offset_time"] = np.round(offs.astype(np.float64) * 1e9)
-        arr["x"], arr["y"], arr["z"] = pts[:, 0], pts[:, 1], pts[:, 2]
-        arr["tag"] = 0x10
-        arr["line"] = ring % 6
-        return tbag.LIVOX_TYPE, NS(header=tbag.make_header(t, "livox"),
-                                   timebase=int(round(t * 1e9)),
-                                   points_arr=arr)
-    cols = dict(x=pts[:, 0], y=pts[:, 1], z=pts[:, 2], intensity=100.0,
-                ring=ring)
-    if lidar_type == 3:
-        cols["t"] = np.round(offs.astype(np.float64) * 1e9)
-        return tbag.PC2_TYPE, _pointcloud2(OUSTER_FIELDS, t, cols)
-    if lidar_type == 5:
-        cols["timestamp"] = t + offs.astype(np.float64)
-        return tbag.PC2_TYPE, _pointcloud2(XT32_FIELDS, t, cols)
-    raise ValueError(f"no rig writes lidar type {lidar_type}")
-
-
-def bag_messages(cfg, seq, lines):
-    """The sequence as (topic, type, stamp, message) on the yaml's topics:
-    sensor_msgs/Imu, the rig's LiDAR message, raw mono8 images."""
-    c = cfg.common
-    msgs = []
-    for t, g, a in zip(seq.imu_stamps, seq.imu_gyr, seq.imu_acc):
-        msgs.append((c.imu_topic, tbag.IMU_TYPE, float(t), NS(
-            header=tbag.make_header(float(t), "imu"),
-            angular_velocity=NS(x=float(g[0]), y=float(g[1]), z=float(g[2])),
-            linear_acceleration=NS(x=float(a[0]), y=float(a[1]),
-                                   z=float(a[2])))))
-    for t, pts, offs in seq.scans:
-        mtype, msg = lidar_message(cfg.preprocess.lidar_type, float(t), pts,
-                                   offs, lines)
-        msgs.append((c.lid_topic, mtype, float(t), msg))
-    for t, img in seq.images:
-        img = np.ascontiguousarray(img.astype(np.uint8))
-        h, w = img.shape
-        msgs.append((c.img_topic, tbag.IMAGE_TYPE, float(t), NS(
-            header=tbag.make_header(float(t), "camera"), height=h, width=w,
-            encoding="mono8", is_bigendian=False, step=w, data=img.tobytes())))
-    return msgs
+def rig_sequence(rig, cfg, seconds=SECONDS, lines=None, per_line=None):
+    """chip_smoke.rig_sequence at the CPU tests' size."""
+    pattern = PATTERNS[rig]
+    return cs.rig_sequence(rig, cfg, seconds, lines or pattern[0],
+                           per_line or pattern[1])
 
 
 def convert_bag(path, cfg):
@@ -320,7 +117,7 @@ def rig_run(rig, root):
     out = os.path.join(root, rig)
     if rig != "mars_lvig":
         bag = os.path.join(root, f"{rig}.bag")
-        tbag.write_bag(bag, bag_messages(cfg, seq, RIGS[rig]["lines"]))
+        tbag.write_bag(bag, cs.rig_bag_messages(seq, cfg, PATTERNS[rig][0]))
         conv = convert_bag(bag, cfg)
         conv.gt = seq.gt
         seq = conv
@@ -446,7 +243,7 @@ def test_rig_tracked_slots(rig, M):
     selects: only ntu_viral is above the JAX package's 448-point gate."""
     from fast_livo2_tpu_torch.ops import photo_iteration as tp
 
-    pipe = LIVOPipeline(shrink(load_config(*config_paths(rig))),
+    pipe = LIVOPipeline(shrink(load_config(*cs.rig_paths(rig))),
                         slam_mode="livo", device="cpu")
     cfg = pipe.vio_cfg
     assert cfg.grid_n_width * cfg.grid_n_height == M
@@ -455,22 +252,33 @@ def test_rig_tracked_slots(rig, M):
     assert cam_mod.has_distortion(pipe.cam)
 
 
-@pytest.mark.parametrize("rig", sorted(RIGS))
-def test_rig_geometry(rig):
-    """A rig's scans map back to the IMU frame through the pipeline's own
-    convention (p_I = R p_L + T), and its camera sees through R_ci / P_ci
-    as core/pipeline.py composes them."""
+@pytest.mark.parametrize("rig", sorted(cs.RIGS))
+def test_rig_geometry(rig, tmp_path):
+    """The rig assembly's recording (chip_smoke.rig_frames) maps back to
+    io/synthetic's through the pipeline's own convention (p_I = R p_L +
+    T) and load_sequence(cfg=)'s offsets, and its camera sees through
+    R_ci / P_ci as core/pipeline.py composes them."""
     cfg = rig_config(rig)
-    R, T, R_ci, P_ci = extrinsics(cfg)
+    _, _, R_ci, P_ci = cs.rig_extrinsics(cfg)
     pipe = LIVOPipeline(cfg, slam_mode="livo", device="cpu")
     np.testing.assert_allclose(pipe.Rci.numpy(), R_ci, atol=1e-6)
     np.testing.assert_allclose(pipe.Pci.numpy(), P_ci, atol=1e-6)
     seq = synthetic.make_sequence(duration=0.8, seed=0, n_lines=4,
                                   n_per_line=50, render=False)
-    pts = seq.scans[0][1]
-    p_l = ((pts.astype(np.float64) - T) @ R).astype(np.float32)
-    np.testing.assert_allclose(p_l @ pipe.ext_R.numpy().T + pipe.ext_T.numpy(),
-                               pts, atol=1e-5)
+    seq.images = [(0.1, np.zeros((2, 2), np.float32))]
+    rec = cs.rig_frames(seq, cfg)
+    off = cfg.time_offset
+    assert abs(rec.images[0][0] + off.img_time_offset - 0.1) < 1e-12
+    d = str(tmp_path / "seq")
+    dataset.save_sequence(d, rec)
+    back = dataset.load_sequence(d, cfg=cfg)
+    np.testing.assert_allclose(back.imu_stamps, seq.imu_stamps, atol=1e-9)
+    assert len(back.scans) == len(seq.scans)
+    for (t, p_l, o), (u, p_i, o_i) in zip(back.scans, seq.scans):
+        assert abs(t - u) < 1e-9
+        np.testing.assert_array_equal(o, o_i)
+        np.testing.assert_allclose(
+            p_l @ pipe.ext_R.numpy().T + pipe.ext_T.numpy(), p_i, atol=1e-5)
 
 
 @pytest.mark.parametrize("rig", ["ntu_viral", "hilti22"])
@@ -482,7 +290,7 @@ def test_rig_bag_converts_to_its_sequence(rig, tmp_path):
     cfg = rig_config(rig)
     seq = rig_sequence(rig, cfg, seconds=0.6, lines=4, per_line=100)
     bag = str(tmp_path / "rig.bag")
-    tbag.write_bag(bag, bag_messages(cfg, seq, 4))
+    tbag.write_bag(bag, cs.rig_bag_messages(seq, cfg, 4))
     conv = convert_bag(bag, cfg)
     assert len(conv.scans) == len(seq.scans)
     assert len(conv.images) == len(seq.images)
@@ -501,3 +309,93 @@ def test_rig_bag_converts_to_its_sequence(rig, tmp_path):
     for (t, im), (u, _) in zip(back.images, seq.images[::step]):
         assert abs(t - (u + cfg.time_offset.img_time_offset)) < 1e-6
         assert im.shape == (cfg.camera.cam_height, cfg.camera.cam_width)
+
+
+# ------------------------------------------- one-ulp spread (a script)
+
+def _card_recording(rig, root):
+    """The card's recording of the rig (chip_smoke.make_rig's: the shipped
+    yamls, RIGS' size; through its bag and the port's converter but for
+    mars_lvig) as an npz directory root/base."""
+    cfg = load_config(*cs.rig_paths(rig))
+    seq = cs.rig_sequence(rig, cfg)
+    if cs.RIGS[rig]["bag"]:
+        bag = os.path.join(root, "rig.bag")
+        tbag.write_bag(bag, cs.rig_bag_messages(seq, cfg,
+                                                cs.RIGS[rig]["lines"]))
+        conv = convert_bag(bag, cfg)
+        conv.gt = seq.gt
+        seq = conv
+    dataset.save_sequence(os.path.join(root, "base"), seq)
+
+
+def _trajectory(pkg, rig, seq_dir, card, out):
+    """One LIVO run of `pkg` ("jax" or "port", on the CPU) over seq_dir
+    (card: the shipped yamls; else this file's size), saved as out."""
+    torch.set_num_threads(2)
+    if pkg == "jax":
+        import tests.conftest  # noqa: F401  (JAX on the CPU)
+        from fast_livo2_tpu.utils.config import load_config as loader
+    else:
+        loader = load_config
+    cfg = loader(*cs.rig_paths(rig)) if card else rig_config(rig, loader)
+    traj = (jax_run(cfg, seq_dir)[0] if pkg == "jax"
+            else port_trajectory(cfg, seq_dir)[0])
+    np.savez(out, t=[t for t, _, _ in traj], p=[p for _, _, p in traj],
+             R=[R for _, R, _ in traj])
+
+
+def ulp_spread(rig, root, card):
+    """The rig's recording (card: the card's, `_card_recording`; else this
+    file's, `rig_run`) and a copy with every scan point moved by one
+    float32 ulp, each run by the JAX package and the port on the CPU (in
+    four processes). Prints, as one JSON line, each run's ATE and drift
+    (% of the ground-truth path) and the position spread of each pair
+    (max |dp| over the frames up to 2, 4 and 6 s)."""
+    import json
+    import subprocess
+    import sys
+
+    base, ulp = os.path.join(root, "base"), os.path.join(root, "ulp")
+    if not os.path.isdir(ulp):
+        if card:
+            _card_recording(rig, root)
+        else:
+            os.replace(rig_run(rig, root)[0], base)
+        cs.ulp_copy(base, ulp)
+    procs = {(pkg, v): subprocess.Popen(
+        [sys.executable, "-m", "tests.test_torch_rigs", "run", pkg, rig,
+         os.path.join(root, v), os.path.join(root, f"{pkg}_{v}.npz"),
+         str(int(card))]) for pkg in ("jax", "port") for v in ("base", "ulp")}
+    for p in procs.values():
+        assert p.wait() == 0
+    g = np.load(os.path.join(base, "gt.npz"))
+    gt = [(t, None, p) for t, p in zip(g["stamps"], g["pos"])]
+    path = float(np.sum(np.linalg.norm(np.diff(g["pos"], axis=0), axis=1)))
+    runs = {k: np.load(os.path.join(root, f"{k[0]}_{k[1]}.npz"))
+            for k in procs}
+    ate = {f"{k[0]}_{k[1]}": synthetic.ate_rmse(list(zip(r["t"], r["p"])), gt)
+           for k, r in runs.items()}
+    out = {"rig": rig, "card_size": card, "path_m": path, "ate_m": ate,
+           "drift_pct": {k: 100.0 * v / path for k, v in ate.items()}}
+    for a, b in ((("jax", "base"), ("jax", "ulp")),
+                 (("port", "base"), ("port", "ulp")),
+                 (("port", "base"), ("jax", "base"))):
+        ra, rb = runs[a], runs[b]
+        assert np.array_equal(ra["t"], rb["t"])
+        dp = np.linalg.norm(ra["p"] - rb["p"], axis=1)
+        since = ra["t"] - ra["t"][0]
+        out[f"{a[0]}_{a[1]}_vs_{b[0]}_{b[1]}_max_dp_m"] = {
+            f"to_{s}s": float(dp[since <= s].max()) for s in (2, 4, 6)}
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    # python -m tests.test_torch_rigs ulp RIG DIR [card]
+    import sys
+
+    if sys.argv[1] == "run":
+        _trajectory(*sys.argv[2:5], sys.argv[6] == "1", sys.argv[5])
+    else:
+        ulp_spread(sys.argv[2], sys.argv[3],
+                   len(sys.argv) > 4 and sys.argv[4] == "card")

@@ -1,5 +1,5 @@
 """The rigs' recordings against the JAX package's tools: the Ouster and
-Hesai XT32 PointCloud2 bags (tests/test_torch_rigs.py's field layouts, on
+Hesai XT32 PointCloud2 bags (chip_smoke.py's field layouts, on
 the ntu_viral and hilti22 yamls' topics) written by the port's
 io/rosbag.write_bag byte for byte as by the JAX writer, and converted by
 `python -m fast_livo2_tpu_torch.convert_rosbag --lidar-type 3 / 5` array
@@ -22,8 +22,8 @@ from fast_livo2_tpu_torch.io import dataset
 from fast_livo2_tpu_torch.io import rosbag as tbag
 from fast_livo2_tpu_torch.utils.config import load_config
 from tests.test_torch_convert import _npz_arrays
-from tests.test_torch_rigs import (ROOT, bag_messages, config_paths,
-                                   rig_config, rig_sequence)
+import chip_smoke as cs
+from tests.test_torch_rigs import ROOT, rig_config, rig_sequence
 
 LIDAR_RIGS = {"ntu_viral": 3, "hilti22": 5}
 
@@ -36,8 +36,8 @@ def bags(tmp_path_factory):
     out = {}
     for rig in LIDAR_RIGS:
         cfg = rig_config(rig)
-        msgs = bag_messages(cfg, rig_sequence(rig, cfg, seconds=0.6, lines=4,
-                                              per_line=100), 4)
+        msgs = cs.rig_bag_messages(rig_sequence(rig, cfg, seconds=0.6,
+                                                lines=4, per_line=100), cfg, 4)
         paths = {}
         for name, mod in (("port", tbag), ("jax", jbag)):
             paths[name] = root / f"{rig}_{name}.bag"
@@ -82,7 +82,7 @@ def test_scale_resize_and_offsets_equal_jax(rig, tmp_path):
     """Full-resolution frames (random, as recorded, no rendering) read
     by both packages with the rig's config: the 0.5 / 0.25 box resize,
     the time offsets and (hilti22) the 40 -> 10 Hz decimation."""
-    cfg, jcfg = load_config(*config_paths(rig)), jax_load_config(*config_paths(rig))
+    cfg, jcfg = load_config(*cs.rig_paths(rig)), jax_load_config(*cs.rig_paths(rig))
     w, h = cfg.camera.cam_width, cfg.camera.cam_height
     rng = np.random.default_rng(3)
     n = 6

@@ -8,18 +8,25 @@ within 1e-4 of the JAX package's (as in tests/test_torch_rigs_avia.py);
 the port's ONLY_LIO run against the JAX package's within 8e-3 m / 4e-3;
 the port's LIVO fused frames bit for bit its split frames.
 
-The whole LIVO trajectory is not held to the JAX package's: the flight's
-first seconds are a transient (the JAX run's LIO mean residual grows
-from 1.3 mm to 10 cm by frame 10), in which the JAX package's own two
-photometric paths (its XLA sampler and its TPU kernel, interpreted)
-part by 9.5 mm at frame 10 and 3.9 cm at frame 14 on this sequence, so
-the comparison would measure the run's sensitivity, not the port."""
+The whole LIVO trajectory is held to the JAX package's only as far as
+the JAX package holds to itself: the flight's first seconds are chaotic
+in both packages (the JAX run's LIO mean residual grows from 1.3 mm to
+10 cm by frame 10), and on this sequence the JAX package against itself
+with every scan point moved by one ulp parts by 6.1 cm (the port
+against itself: 1.8 cm), where the port parts from it by 2.0 cm. The
+8e-3 m golden tolerance would measure that sensitivity, not the port.
+
+    python -m tests.test_torch_rigs ulp mars_lvig DIR [card]
+
+measures that spread (tests/test_torch_rigs.ulp_spread) at this file's
+size, or (card) on the card's recording of this rig."""
 
 import copy
 
 import numpy as np
 import pytest
 
+from chip_smoke import ulp_copy
 from tests.test_torch_rigs import (assert_traj_close, assert_traj_equal,
                                    jax_run, one_torch_thread,  # noqa: F401
                                    parity_runs, port_trajectory, rig_config,
@@ -51,6 +58,28 @@ def test_rig_lio_matches_jax(runs):
     assert_traj_close(traj, jtraj)
 
 
+def test_rig_livo_within_jax_ulp_spread(runs, tmp_path):
+    """The port's LIVO trajectory is no farther from the JAX package's
+    than the JAX package's own run is from itself with every scan point
+    moved by one ulp (measured: 2.0 cm against 6.1 cm)."""
+    from fast_livo2_tpu.utils.config import load_config as jax_load_config
+
+    ulp_dir = str(tmp_path / "ulp")
+    ulp_copy(runs["seq_dir"], ulp_dir)
+    jax_ulp, _ = jax_run(rig_config(RIG, jax_load_config), ulp_dir)
+
+    def max_dp(a, b):
+        assert [t for t, _, _ in a] == [t for t, _, _ in b]
+        return max(float(np.linalg.norm(pa - pb))
+                   for (_, _, pa), (_, _, pb) in zip(a, b))
+
+    spread = max_dp(runs["jax"], jax_ulp)
+    port = max_dp(runs["split"], runs["jax"])
+    print(f"port vs JAX {port} m, JAX vs JAX one ulp {spread} m")
+    assert port <= spread
+
+
 def test_rig_fused_equals_split(runs):
     assert len(runs["split"]) >= 15
     assert_traj_equal(runs["fused"], runs["split"])
+
