@@ -59,6 +59,13 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     host times, and the wrapper's host time step by step.
                     No path runs K3 (as in the JAX package): its main-path
                     launches are 0, its phase's count beside them;
+  11b. kernel_ordered_add  ordered_add (no TPU kernel's port: the float
+                    scatter-adds in lane order) against the CPU's
+                    index_add_, bit for bit on every row but the sink, at
+                    the map insert's, the downsample's and the TSDF's
+                    shapes (ORDERED_ADD_SHAPES), twice each; timed in
+                    turns beside CUDA's index_add_ (float atomics) and
+                    the same under deterministic algorithms;
   12. run_cli       the user's run: the LIVO sequence saved as an npz
                     sequence under build/, a sensor yaml of the same
                     config, and `python -m fast_livo2_tpu_torch.run` with
@@ -74,15 +81,18 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
   14-19. pipeline_fused, parity_fused, profile_fused and the same three
                     for LIVO: tpu.fused_frame, each frame after the first
                     two one replay of a captured CUDA graph. Four runs in
-                    turns in one process (split, fused, fused, split):
+                    turns in one process (split, fused, fused, split; the
+                    two runs of each form bit for bit the same, fused vs
+                    split within the golden tolerances, ordered_add once
+                    a site a frame):
                     frames, ATE, tracked points, frame times, capture
                     seconds, graphs and their memory, bytes copied back a
                     frame, 0 host syncs in a replayed frame, K1 once and
                     K2 pyramid levels x iterations (20) a VIO frame
                     beside the iterations that took effect; parity_fused*:
-                    a fused and a split run of their own under torch's
-                    deterministic algorithms, held to the golden
-                    tolerances (expected 0.0); steady replays under
+                    the first fused run against the first split run,
+                    held to the golden tolerances (expected 0.0);
+                    steady replays under
                     torch.profiler with K1 and K2 found in them by kernel
                     name (a profile whose counts fall short, as the
                     profiler drops events on a busy host, is taken again,
@@ -90,8 +100,7 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
   20. stage_timing  LIVO with tpu.stage_timing: every stage's device ms
                     on every staged frame, the table printed, and the
                     trajectory against the split run with
-                    deferred_map_insert = False beside two such runs'
-                    own spread;
+                    deferred_map_insert = False;
   21. resume_fused  a fused run saved half-way, loaded into a fused
                     pipeline that has already captured its graph, and run
                     on from its static buffers: held to the golden
@@ -156,10 +165,10 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     in both (tests/test_hard_scene.py);
   30. soak        scripts/soak.py's 20 s flight at its capacities (320 x
                     256, 2^15 slots, an 8-frame ring, sliding at 1 m)
-                    with a 2,048-point pool, LIVO split, fused, then a
-                    deterministic split + fused pair: the script's gates
-                    in both forms, >= 3 slides, >= 20 ring wraps, >= 1
-                    pool wrap, one capture, 0 syncs in a replay, 0.0 m;
+                    with a 2,048-point pool, LIVO split then fused: the
+                    script's gates in both forms, >= 3 slides, >= 20 ring
+                    wraps, >= 1 pool wrap, one capture, 0 syncs in a
+                    replay, fused vs split 0.0 m;
   31. outdoor     bench.py's 45 s outdoor flight (2 m voxels, map
                     sliding, 80 m range), ONLY_LIO fused with the plane-
                     information cap (deterministic, against its
@@ -172,7 +181,8 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     0.05 m, K2 20 a fused VIO frame, capture s and pool
                     bytes, K1 / K2 device ms a frame from one profile;
   33. tools       `fast_livo2_tpu_torch.mesh` on run_cli's cloud (its
-                    volume against the CPU's), `export_planes` (the CLI
+                    volume against the CPU's, and integrated twice on the
+                    card: bit for bit), `export_planes` (the CLI
                     on run_cli's checkpoint; a fused run's map: planes =
                     _ISPL rows), `fleet_scaling` B = 1, 2, 4.
   34. rig_avia, rig_ntu_viral, rig_hilti22, rig_mars_lvig: the four
@@ -183,14 +193,13 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     offsets; a ROS bag on the yaml's topics but for
                     mars_lvig) through `convert_rosbag` and the CLI with
                     the yamls as shipped: split and fused in turns
-                    (split, fused, fused, split), then the same pair
-                    under deterministic algorithms; ATE or drift gates
-                    and tracked points on the default runs (mars_lvig,
-                    whose start is chaotic: on its deterministic pair),
-                    fused vs split 0.0 m under deterministic algorithms
-                    and within the golden tolerances in the default
-                    pairs (avia, mars_lvig: reported), 0 syncs in a
-                    replay, K1 once a frame, K2 20 / 15 / 0 / 20 a fused
+                    (split, fused, fused, split; mars_lvig, whose start
+                    is chaotic, then the same pair under deterministic
+                    algorithms, which its drift gate reads); ATE or drift
+                    gates and tracked points, fused vs split and the two
+                    runs of each form 0.0 m apart, 0 syncs in a replay,
+                    K1 once a frame,
+                    ordered_add once a site, K2 20 / 15 / 0 / 20 a fused
                     VIO frame; bag bytes, convert s, capture s, graph
                     pool bytes, each side's median over its two runs.
                     The CPU tests (tests/test_torch_rigs*.py) import
@@ -234,6 +243,12 @@ process.
 builds rig NAME's recording as the rigs phase does and prints how far
 RUNS default split runs part, and how far a deterministic run moves
 when every scan point moves by one ulp (`rig_spread`).
+
+    python3 chip_smoke.py --det-kernels NAME
+
+builds rig NAME's recording likewise and lists the device kernels of a
+fused LIVO frame that torch's deterministic algorithms add, drop or
+launch a different number of times (`det_kernels`).
 """
 
 import contextlib
@@ -284,6 +299,14 @@ PARITY_FRAMES_LIVO = 8
 GATHER_SHAPES = ((262144, 128, 8192, 128), (2048, 128, 512, 64),
                  (2048, 13, 512, 64))
 GATHER_INDEX_SETS = 16  # 16 x 4 MiB of distinct rows > the 50 MB L2
+# ordered_add at each call site's shape: (rows R incl. the sink, width
+# W, lanes n) — the map insert (3 layers of 2^18 slots, 3 x 8,192 lanes
+# of 16 moments), the downsample (~22.8k sorted scan points into 8,192
+# voxels + the sink) and the TSDF (a frame chunk of 8,192 points x 7 ray
+# samples into the mesh's 256^3 volume).
+ORDERED_ADD_SHAPES = {"map_insert": (3 * (1 << 18) + 1, 16, 3 * 8192),
+                      "downsample": (8193, 3, 22800),
+                      "tsdf": (256 ** 3 + 1, 1, 8192 * 7)}
 K2_SWEEP = (0, 1, 7, 9, M_MAIN, 4096)  # a block holds 8 points
 K2_REPEATS = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -293,7 +316,14 @@ class PhaseError(RuntimeError):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line carries `t_s`, the seconds since the
+    script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -793,18 +823,39 @@ def drive(pipe, after=None):
 
 
 def reset_launches():
-    from fast_livo2_tpu_torch.ops import cov_scan, gather
+    from fast_livo2_tpu_torch.ops import cov_scan, gather, ordered_add
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
     cov_scan.LAUNCHES = photo.LAUNCHES = gather.LAUNCHES = 0
+    ordered_add.LAUNCHES = 0
 
 
 def read_launches():
-    from fast_livo2_tpu_torch.ops import cov_scan, gather
+    from fast_livo2_tpu_torch.ops import cov_scan, gather, ordered_add
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
     return {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES,
-            "gather_rows": gather.LAUNCHES}
+            "gather_rows": gather.LAUNCHES, "ordered_add": ordered_add.LAUNCHES}
+
+
+def ordered_add_sites(pipe):
+    """ordered_add launches of a frame after the first: the downsample's,
+    and the compacted map insert's two (layer 0 on every point, then the
+    descending lanes: tpu.descend_compact below the points a frame and
+    more than one layer) or one. The first frame builds the map with the
+    full insert: two."""
+    m = pipe.map_cfg
+    return 2 + bool(m.descend_compact and m.n_layers > 1
+                    and m.descend_compact < pipe.cfg.tpu.max_points_down)
+
+
+def check_ordered_add(name, launches, frames, sites):
+    """ordered_add launched once a site the run's frames ran."""
+    want = 2 + (frames - 1) * sites
+    check(launches["ordered_add"] == want,
+          f"{name}: ordered_add launched {launches['ordered_add']} times in "
+          f"{frames} frames, {want} expected ({sites} a frame after the "
+          f"first)")
 
 
 def run_sequence(seq, mode, vio=None, cfg=None, **tpu):
@@ -842,10 +893,11 @@ def free_device_memory():
 @contextlib.contextmanager
 def deterministic():
     """torch's deterministic algorithms for the block (with cuBLAS's
-    deterministic workspace setting, which the mode asks for): the float
-    scatter-adds of the map insert and the downsample then sum in one
-    order, which alone parts two split runs by 3-4e-3 m over the 58
-    frames (stage_timing's spread)."""
+    deterministic workspace setting, which the mode asks for). Default
+    runs repeat bit for bit without it (ops/ordered_add sums the float
+    scatter-adds in lane order); `--det-kernels` lists the kernels it
+    changes in a frame and why none of them changes a value read
+    (PERF.md §6)."""
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -898,6 +950,7 @@ def phase_pipeline(seq, mode):
     # through the IMU batch once.
     check(launches["cov_scan"] == frames,
           f"cov_scan launched {launches['cov_scan']} times in {frames} frames")
+    check_ordered_add(mode, launches, frames, ordered_add_sites(pipe))
     steady = frame_ms[1:]  # frame 0 builds the map and warms the caches
     out = {"phase": "pipeline" if mode == "only_lio" else "pipeline_livo",
            "mode": mode, "frames": frames, "ate_rmse_m": ate,
@@ -908,6 +961,7 @@ def phase_pipeline(seq, mode):
            "host_syncs_per_frame_max": max(syncs[1:]),
            "cov_scan_launches": launches["cov_scan"],
            "gather_rows_launches": launches["gather_rows"],
+           "ordered_add_launches": launches["ordered_add"],
            "mean_n_eff": float(np.mean([r["n_eff"] for r in pipe.log.rows[1:]])),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "points_per_scan": int(np.median([len(p) for _, p, _ in seq.scans]))}
@@ -981,6 +1035,7 @@ def profile_frames(seq, mode, warm=12, frames=10, top=8, fused=False,
     from torch.profiler import ProfilerActivity, profile
 
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.utils.timing import STAGES
 
     cfg = copy.deepcopy(cfg) if cfg is not None else full_width_config()
     cfg.tpu.fused_frame = fused
@@ -996,7 +1051,10 @@ def profile_frames(seq, mode, warm=12, frames=10, top=8, fused=False,
         wall_ms = (time.perf_counter() - t0) * 1e3
     iterations = int(pipe.photo_iterations - iterations)
     check(n == frames, f"profiled {n} frames, wanted {frames}")
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the split frame's annotate() ranges show as device events too
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in STAGES]
     busy_ms = sum(e.device_time for e in kernels) / 1e3  # us -> ms
     by_name = {}
     for e in kernels:
@@ -1168,6 +1226,128 @@ def phase_kernel_gather():
           "plain_device_ms": plain_dev_ms, "timings": t,
           "host_us_steps": steps, "phase_launches": gather.LAUNCHES, **row})
     return row, gather.LAUNCHES
+
+
+def ordered_add_case(name, seed=0):
+    """numpy (base (R, W), dst (n,) int64, src (n, W), sink row) at
+    ORDERED_ADD_SHAPES[name], with the call site's duplicates: the map
+    insert's lanes crowd 1,500 voxels of a non-zero map (a voxel holds
+    ~10 lanes) and 40 % go to the sink; the downsample's are sorted,
+    runs of 1-12 points a voxel, the last 1,500 (invalid) to the sink;
+    the TSDF's 8,192 rays land on 20,000 voxels, 10 % out of the volume
+    (the sink), the SDF samples in [-1, 1]. tests/test_torch_ordered_add.py
+    and tests/test_torch_cuda.py take the same cases."""
+    R, W, n = ORDERED_ADD_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    base = np.zeros((R, W), np.float32)
+    if name == "map_insert":
+        voxels = rng.choice(R - 1, 1500, replace=False)
+        base[voxels] = rng.normal(size=(1500, W)).astype(np.float32) * 50.0
+        dst = voxels[rng.integers(0, 1500, n)]
+        dst[rng.random(n) < 0.4] = R - 1
+    elif name == "downsample":
+        dst = np.minimum(np.repeat(np.arange(R), rng.integers(1, 13, R))[:n],
+                         R - 1)
+        dst[-1500:] = R - 1
+    else:
+        dst = rng.choice(R - 1, 20000, replace=False)[rng.integers(0, 20000, n)]
+        dst[rng.random(n) < 0.1] = R - 1
+    src = rng.normal(size=(n, W)).astype(np.float32)
+    if name == "tsdf":
+        src = np.clip(src, -1.0, 1.0)
+    return base, dst.astype(np.int64), src, R - 1
+
+
+def phase_kernel_ordered_add():
+    """ordered_add against the CPU's index_add_ bit for bit on every row
+    but the sink, at ORDERED_ADD_SHAPES (each twice: the same bits), the
+    CUDA index_add_ (float atomics) and the same under deterministic
+    algorithms beside it; then timed at each shape in turns (atomics,
+    deterministic, kernel, kernel, deterministic, atomics): event ms,
+    host us, device ms by kernel (the kernel and, but at the downsample,
+    the stable sort before it). Returns the kernels-line row (the map
+    insert's shape) and the phase's launches."""
+    from fast_livo2_tpu_torch.ops import ordered_add
+
+    ordered_add.LAUNCHES = 0
+    shapes, row = {}, None
+    for name, (R, W, n) in ORDERED_ADD_SHAPES.items():
+        b_np, d_np, s_np, sink = ordered_add_case(name)
+        want = torch.from_numpy(b_np.copy()).index_add_(
+            0, torch.from_numpy(d_np), torch.from_numpy(s_np))[:sink]
+        base0, dst, src = (torch.from_numpy(a).cuda() for a in (b_np, d_np, s_np))
+        srt = name == "downsample"
+        got = []
+        for _ in range(2):
+            before = ordered_add.LAUNCHES
+            got.append(ordered_add.ordered_index_add_(base0.clone(), dst, src,
+                                                      drop=sink, dst_sorted=srt))
+            torch.cuda.synchronize()
+            check(ordered_add.LAUNCHES == before + 1,
+                  f"ordered_add {name}: no launch counted")
+        check(torch.equal(got[0], got[1]), f"ordered_add {name}: two calls differ")
+        err = float((got[0][:sink].cpu() - want).abs().max())
+        check(torch.equal(got[0][:sink].cpu(), want),
+              f"ordered_add {name}: differs from the CPU's index_add_ "
+              f"(max abs {err})")
+        atomic = base0.clone().index_add_(0, dst, src)
+        with deterministic():
+            det = base0.clone().index_add_(0, dst, src)
+        torch.cuda.synchronize()
+        base = base0.clone()
+        fns = {"atomics": lambda: base.index_add_(0, dst, src),
+               "kernel": lambda: ordered_add.ordered_index_add_(
+                   base, dst, src, drop=sink, dst_sorted=srt)}
+        t = {k: {"ms_turns": []} for k in ("atomics", "deterministic", "kernel")}
+        # the deterministic index_add_ takes 0.3-2 ms a call: fewer calls
+        slow = dict(reps=3, calls=20, warmup=5)
+        for k in ("atomics", "deterministic", "kernel", "kernel",
+                  "deterministic", "atomics"):
+            with deterministic() if k == "deterministic" else contextlib.nullcontext():
+                t[k]["ms_turns"].append(time_cuda(
+                    fns.get(k, fns["atomics"]),
+                    **(slow if k == "deterministic" else {})))
+        for k, v in t.items():
+            v["ms"] = statistics.mean(v["ms_turns"])
+            if k == "deterministic":
+                with deterministic():
+                    per_call, by_name = device_profile(fns["atomics"], calls=10)
+                    v.update(host_us=host_us(fns["atomics"], calls=100,
+                                             batch=20),
+                             device_ms=sum(by_name.values()),
+                             device_kernels_per_call=per_call)
+            else:
+                v.update(timings(fns[k], event=False))
+        kernel_dev = sum(v for k, v in t["kernel"]["device_ms_by_kernel"].items()
+                         if "ordered_add_kernel" in k)
+        # Least time: src and dst read once, each touched row read and
+        # written once (the sink excluded); additions are n W flops.
+        touched = int(torch.unique(dst).numel()) - int(bool((dst == sink).any()))
+        nbytes = n * W * 4 + n * 8 + 2 * touched * W * 4
+        bound_ms, bound_by = bound(nbytes, n * W)
+        shapes[name] = {
+            "R": R, "W": W, "n": n, "rows_touched": touched,
+            "sink_lanes": int((dst == sink).sum()), "sorted_input": srt,
+            "bitwise_cpu": True, "repeat_bitwise": True,
+            "atomics_bitwise_cpu": bool(torch.equal(atomic[:sink].cpu(), want)),
+            "deterministic_bitwise_cpu": bool(torch.equal(det[:sink].cpu(), want)),
+            "atomics_max_abs_diff_cpu": float((atomic[:sink].cpu() - want).abs().max()),
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_device_ms": kernel_dev, "timings": t}
+        if name == "map_insert":
+            row = {"name": "ordered_add.ordered_index_add_", "route": "cuda",
+                   "source": "fast_livo2_tpu_torch/csrc/ordered_add.cu",
+                   "replaces": "none (no TPU kernel: CUDA's float index_add_ "
+                               "sums in no fixed order)",
+                   "max_abs_err": err, "ms": t["kernel"]["ms"],
+                   "plain_ms": t["atomics"]["ms"], "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": t["deterministic"]["ms"],
+                   "device_ms": t["kernel"]["device_ms"],
+                   "kernel_device_ms": kernel_dev,
+                   "host_us": t["kernel"]["host_us"]}
+    emit({"phase": "kernel_ordered_add", "shapes": shapes,
+          "phase_launches": ordered_add.LAUNCHES, "nvidia_smi": nvidia_smi()})
+    return row, ordered_add.LAUNCHES
 
 
 def gather_timings(table, nxt, group):
@@ -1345,6 +1525,7 @@ def phase_pipeline_fused(seq, mode):
                                                     fused_frame=fused)
         runs.append(dict(fused=fused, traj=pipe.trajectory, ms=ms,
                          syncs=syncs, launches=launches,
+                         sites=ordered_add_sites(pipe),
                          iterations=pipe.photo_iterations,
                          rows=pipe.log.rows,
                          graphs=(pipe._frame_graphs.summary() if fused
@@ -1365,6 +1546,30 @@ def phase_pipeline_fused(seq, mode):
     check(fz["launches"]["cov_scan"] == frames,
           f"cov_scan launched {fz['launches']['cov_scan']} times in "
           f"{frames} fused frames")
+    for r in runs:
+        check_ordered_add(f"{mode} {'fused' if r['fused'] else 'split'}",
+                          r["launches"], frames, r["sites"])
+    check(g["launches_per_replay"][0]["ordered_add"] == fz["sites"],
+          f"a replay launches ordered_add "
+          f"{g['launches_per_replay'][0]['ordered_add']} times")
+    # The default mode repeats: both runs of each form bit for bit (every
+    # float scatter-add sums in lane order); the frame forms within the
+    # golden tolerances (parity_fused's line).
+    repeat = {"fused_vs_fused_2": traj_diff(runs[1]["traj"], runs[2]["traj"]),
+              "split_vs_split_2": traj_diff(runs[0]["traj"], runs[3]["traj"]),
+              "fused_vs_split": traj_diff(runs[1]["traj"], runs[0]["traj"])}
+    for k, (dp, dR) in repeat.items():
+        if k == "fused_vs_split":
+            check(dp <= POS_TOL_M and dR <= ROT_TOL,
+                  f"{mode} default {k}: {dp} m, {dR}")
+        else:
+            check(dp == dR == 0.0, f"{mode} default {k}: {dp} m, {dR}")
+    dp, dR = repeat["fused_vs_split"]
+    emit({"phase": "parity_fused" if mode == "only_lio"
+          else "parity_fused_livo", "frames": frames, "deterministic": False,
+          "runs": "the first fused and split runs of the turns",
+          "max_pos_diff_m": dp, "max_rot_diff": dR, "pos_tol_m": POS_TOL_M,
+          "rot_tol": ROT_TOL})
     out = {"phase": "pipeline_fused" if mode == "only_lio"
            else "pipeline_fused_livo", "mode": mode, "frames": frames,
            "ate_rmse_m": ate, "first_frame_ms": fz["ms"][0],
@@ -1378,7 +1583,11 @@ def phase_pipeline_fused(seq, mode):
            "host_syncs_split_median": statistics.median(runs[0]["syncs"][1:]),
            **g, "cov_scan_launches": fz["launches"]["cov_scan"],
            "photo_iteration_launches": fz["launches"]["photo_iteration"],
-           "gather_rows_launches": fz["launches"]["gather_rows"]}
+           "gather_rows_launches": fz["launches"]["gather_rows"],
+           "ordered_add_launches": fz["launches"]["ordered_add"],
+           "ordered_add_per_replay": fz["sites"],
+           "default_mode_max_pos_diff_m": {k: v[0] for k, v in repeat.items()},
+           "default_mode_max_rot_diff": {k: v[1] for k, v in repeat.items()}}
     if mode == "livo":
         vio_frames = frames - 1
         per_frame = cfg.vio.patch_pyrimid_level * cfg.vio.max_iterations
@@ -1399,29 +1608,6 @@ def phase_pipeline_fused(seq, mode):
     return fz["launches"]
 
 
-def phase_parity_fused(seq, mode):
-    """A fused run against a split run over every frame, both under
-    torch's deterministic algorithms (their own pair, apart from the timed
-    turns of pipeline_fused), so that the comparison sees the two frame
-    forms and not the order of the card's float scatter-adds; held to the
-    golden tolerances, and expected to read 0.0 (on the CPU the two are
-    bit for bit the same, tests/test_torch_frame_modes.py)."""
-    runs = {}
-    with deterministic():
-        for fused in (False, True):
-            pipe, _, _, _, _ = run_sequence(seq, mode, fused_frame=fused)
-            runs[fused] = pipe.trajectory
-            del pipe
-            free_device_memory()
-    dp, dR = traj_diff(runs[True], runs[False])
-    check(dp <= POS_TOL_M and dR <= ROT_TOL,
-          f"{mode} fused vs split on the card: {dp} m, {dR}")
-    emit({"phase": "parity_fused" if mode == "only_lio"
-          else "parity_fused_livo", "frames": len(runs[True]),
-          "deterministic": True, "max_pos_diff_m": dp, "max_rot_diff": dR,
-          "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL})
-
-
 def phase_profile_fused(seq, mode, warm=12, frames=10):
     """Steady fused frames under torch.profiler: kernel ms, idle share and
     kernels a frame; K1 and K2 found inside the replays by kernel name,
@@ -1437,9 +1623,9 @@ def phase_stage_timing(seq):
     loops, CUDA events around each stage read once a frame): every
     stage's ms > 0 on each staged frame, the table printed, and the
     trajectory against the split run with deferred_map_insert = False
-    (the same order), beside two such split runs against each other: the
-    card's own spread between runs of one configuration (its scatter-adds
-    run in no fixed order)."""
+    (the same order). Two default runs of one form repeat bit for bit
+    (pipeline_fused_livo holds that), so the difference is the staged
+    frame's."""
     from fast_livo2_tpu_torch.utils.timing import STAGES
 
     pipe, _, ms, syncs, _ = run_sequence(seq, "livo", stage_timing=True)
@@ -1459,14 +1645,10 @@ def phase_stage_timing(seq):
                 for k in STAGES}
     del pipe
     free_device_memory()
-    ref = []
-    for _ in range(2):
-        p = run_sequence(seq, "livo", deferred_map_insert=False)[0]
-        ref.append(p.trajectory)
-        del p
-        free_device_memory()
-    dp, dR = traj_diff(staged, ref[0])
-    spread_p, spread_R = traj_diff(ref[1], ref[0])
+    p = run_sequence(seq, "livo", deferred_map_insert=False)[0]
+    dp, dR = traj_diff(staged, p.trajectory)
+    del p
+    free_device_memory()
     check(dp <= POS_TOL_M and dR <= ROT_TOL,
           f"staged vs split (deferred_map_insert = False): {dp} m, {dR}")
     emit({"phase": "stage_timing", "frames": len(staged),
@@ -1477,7 +1659,6 @@ def phase_stage_timing(seq):
           "host_syncs_per_frame_median": statistics.median(syncs[1:]),
           "max_pos_diff_m": dp, "max_rot_diff": dR,
           "within_1e-4_m": dp <= 1e-4,
-          "split_run_spread_pos_m": spread_p, "split_run_spread_rot": spread_R,
           "pos_tol_m": POS_TOL_M, "rot_tol": ROT_TOL, "table": table})
 
 
@@ -1542,11 +1723,8 @@ def phase_vio_extras(seq):
     golden tolerances, 0 host syncs in a replayed frame, K1 once a frame,
     K2 pyramid levels x iterations (20) a fused VIO frame with raycast
     and never with the IC update (tensor ops in both packages). The four
-    runs use torch's deterministic algorithms, so that fused against
-    split compares the two frame forms and not the order of the float
-    scatter-adds, which alone parts two split runs by 3-4e-3 m over the
-    58 frames (stage_timing's spread); their frame times are those of
-    that mode. Returns {flag: the fused run's launches}."""
+    runs use torch's deterministic algorithms; their frame times are
+    those of that mode. Returns {flag: the fused run's launches}."""
     from fast_livo2_tpu_torch.core import vio as vio_mod
 
     with deterministic():
@@ -2583,7 +2761,7 @@ def run_forms(seq, mode, cfg, forms):
             pipe, _, ms, syncs, launches = run_sequence(
                 seq, mode, cfg=cfg, fused_frame=form.startswith("fused"))
         runs[form] = dict(pipe=pipe, traj=pipe.trajectory, ms=ms, syncs=syncs,
-                          launches=launches,
+                          launches=launches, ordered_add_sites=ordered_add_sites(pipe),
                           graphs=(pipe._frame_graphs.summary()
                                   if pipe._frame_graphs else None))
     return runs
@@ -2609,6 +2787,11 @@ def fused_checks(name, r, vio_frames=None, per_frame=None):
     check(r["launches"]["cov_scan"] == frames,
           f"{name}: cov_scan launched {r['launches']['cov_scan']} times in "
           f"{frames} fused frames")
+    check(g["launches_per_replay"][0]["ordered_add"] == r["ordered_add_sites"],
+          f"{name}: a replay launches ordered_add "
+          f"{g['launches_per_replay'][0]['ordered_add']} times, "
+          f"{r['ordered_add_sites']} sites")
+    check_ordered_add(name, r["launches"], frames, r["ordered_add_sites"])
     out = {"graphs": g["graphs"], "capture_s": g["capture_seconds"][0],
            "graph_pool_bytes": g["pool_bytes"][0],
            "host_syncs_replayed_max": max(replayed),
@@ -2623,12 +2806,13 @@ def fused_checks(name, r, vio_frames=None, per_frame=None):
 
 
 def split_checks(name, r, pipe_iterations=None):
-    """A split run: K1 once a frame; in LIVO, K2 once a photometric
-    iteration that took effect."""
+    """A split run: K1 once a frame, ordered_add once a site; in LIVO, K2
+    once a photometric iteration that took effect."""
     frames = len(r["traj"])
     check(r["launches"]["cov_scan"] == frames,
           f"{name}: cov_scan launched {r['launches']['cov_scan']} times in "
           f"{frames} split frames")
+    check_ordered_add(name, r["launches"], frames, r["ordered_add_sites"])
     if pipe_iterations is not None:
         check(r["launches"]["photo_iteration"] == pipe_iterations > 0,
               f"{name}: photo_iteration launched "
@@ -2669,17 +2853,16 @@ def phase_soak(sseq):
     """scripts/soak.py's capacity-cycling soak at its published width (20
     s, 12 x 500 points, 320 x 256 frames; 2^15 slots, 4 observations a
     point, an 8-frame ring, map sliding at 1 m, a 30-voxel half map) with
-    a SOAK_POOL-point pool, LIVO split then fused, then a split + fused
-    pair under deterministic algorithms. Both forms pass the script's
-    gates and cycle at least SOAK_MIN (slides, ring wraps, pool wraps);
-    the fused run captures once and syncs 0 times in a replay; the
-    deterministic pair reads 0.0 m. Returns the fused run's launches."""
+    a SOAK_POOL-point pool, LIVO split then fused. Both forms pass the
+    script's gates and cycle at least SOAK_MIN (slides, ring wraps, pool
+    wraps); the fused run captures once and syncs 0 times in a replay;
+    the two read 0.0 m apart (the float scatter-adds sum in lane order,
+    ops/ordered_add). Returns the fused run's launches."""
     from fast_livo2_tpu_torch import soak
 
     cfg = soak.soak_config(SOAK_POOL)
     per_frame = cfg.vio.patch_pyrimid_level * cfg.vio.max_iterations
-    runs = run_forms(sseq, "livo", cfg, ("split", "fused", "split_det",
-                                          "fused_det"))
+    runs = run_forms(sseq, "livo", cfg, ("split", "fused"))
     out = {"phase": "soak", "seconds": SOAK_S, "pool": SOAK_POOL,
            "frame_ring": cfg.tpu.frame_ring}
     for form in ("split", "fused"):
@@ -2696,10 +2879,9 @@ def phase_soak(sseq):
                      "cov_scan_launches": r["launches"]["cov_scan"],
                      "photo_iteration_launches":
                          r["launches"]["photo_iteration"]}
-    dp, dR = traj_diff(runs["fused_det"]["traj"], runs["split_det"]["traj"])
-    check(dp == 0.0 and dR == 0.0,
-          f"soak fused vs split, deterministic: {dp} m, {dR}")
-    out["deterministic_pair"] = {"max_pos_diff_m": dp, "max_rot_diff": dR}
+    dp, dR = traj_diff(runs["fused"]["traj"], runs["split"]["traj"])
+    check(dp == 0.0 and dR == 0.0, f"soak fused vs split: {dp} m, {dR}")
+    out["fused_vs_split"] = {"max_pos_diff_m": dp, "max_rot_diff": dR}
     release(runs)
     emit(out)
     return runs["fused"]["launches"]
@@ -2817,7 +2999,9 @@ def phase_dense(dseq):
 def phase_tools(seq):
     """The port's tools on the card, as a user calls them:
     - mesh: `fast_livo2_tpu_torch.mesh` on the run_cli phase's cloud.pcd
-      (TSDF on "cuda"), vertices and faces > 0; its volume against the
+      (TSDF on "cuda"), vertices and faces > 0; the volume integrated
+      twice on the card, bit for bit the same (the SDF sums in lane
+      order, ops/ordered_add); its volume against the
       same module's on "cpu". A voxel's tsdf is a weighted mean of
       samples in [-1, 1], and float32 sums of n terms in another order
       part by <= n x 2^-24 (~3e-6 at n = 448), hence 1e-5. The ray
@@ -2855,6 +3039,11 @@ def phase_tools(seq):
     clouds = [read_pcd(pcd)]
     pts = clouds[0][0]
     vols = {d: mesh.integrate_clouds(clouds, device=d) for d in ("cuda", "cpu")}
+    again = mesh.integrate_clouds(clouds, device="cuda")
+    check(torch.equal(again.tsdf, vols["cuda"].tsdf)
+          and torch.equal(again.weight, vols["cuda"].weight),
+          "mesh: two integrations on the card differ")
+    del again
     w_c, w_h = vols["cuda"].weight.cpu(), vols["cpu"].weight
     dt = (vols["cuda"].tsdf.cpu() - vols["cpu"].tsdf).abs()
     grid = w_h.shape[0]
@@ -2896,7 +3085,8 @@ def phase_tools(seq):
           f"mesh volume cuda vs cpu: {int(differs.sum())} of {touched} "
           "voxels differ")
     out["mesh"] = {"points": len(pts), "vertices": nv, "faces": nf,
-                   "wall_s": mesh_s, "touched_voxels": touched,
+                   "wall_s": mesh_s, "card_repeat_bitwise": True,
+                   "touched_voxels": touched,
                    "voxels_differing_cpu": int(differs.sum()),
                    "weight_differing_cpu": int((w_c != w_h).sum()),
                    "samples": len(i_h), "samples_moved": int(moved.sum()),
@@ -2948,14 +3138,11 @@ def phase_tools(seq):
 # pyramid levels x iterations on a pinhole camera, 0 on the fisheye
 # (its update runs in tensor ops, as in the JAX package).
 RIGS = {
-    # avia: four default (non-deterministic) split runs of one recording
-    # part by up to 22 mm on the card (`--rig-spread avia`, PERF.md, PR
-    # 10), above the golden 8e-3 m, so its default fused / split gap is
-    # reported; its deterministic pair is held to 0.0 m.
+    # Every rig's default runs, two of each form, are held to 0.0 m apart:
+    # the float scatter-adds sum in lane order (ops/ordered_add).
     "avia": dict(sensor="avia.yaml", camera="camera_pinhole.yaml",
                  scene="room", lines=24, per_line=1000, fov_deg=70.0,
-                 img_hz=10.0, seconds=4.0, degrade=True, bag=True,
-                 gate_default_pair=False),
+                 img_hz=10.0, seconds=4.0, degrade=True, bag=True),
     "ntu_viral": dict(sensor="ntu_viral.yaml", camera="camera_ntu_viral.yaml",
                       scene="room", lines=16, per_line=1024, fov_deg=360.0,
                       img_hz=10.0, seconds=4.0, bag=True),
@@ -2966,13 +3153,13 @@ RIGS = {
     # waypoints, noise and biases), rendered at 2448 x 2048. Its LIVO
     # start is chaotic, in both packages: on this recording the JAX
     # package against itself with every scan point moved by one ulp
-    # parts by centimetres (PERF.md, PR 10), as the card's split and
-    # fused runs do. So only its deterministic pair is gated; the
-    # user's default (non-deterministic) runs are reported.
+    # parts by centimetres (PERF.md §6). Its default runs repeat, but
+    # which trajectory a repeatable run lands on is chaos: its drift gate
+    # is on the deterministic pair.
     "mars_lvig": dict(sensor="mars_lvig.yaml", camera="camera_mars_lvig.yaml",
                       scene="outdoor", lines=24, per_line=1000, fov_deg=70.0,
                       img_hz=10.0, seconds=6.0, max_range=80.0, bag=False,
-                      gate_default=False, gate_default_pair=False),
+                      gate_default=False),
 }
 RIG_ATE_GATES = {"avia": 0.05, "ntu_viral": 0.05,
                  "hilti22": 0.06}  # tests/test_pipeline_livo.py:166
@@ -3186,6 +3373,7 @@ def cli_rig_run(config, camera, seq_dir, out):
         pipe._finalize_host_views()
         got["graphs"] = (pipe._frame_graphs.summary()
                          if pipe._frame_graphs is not None else None)
+        got["ordered_add_sites"] = ordered_add_sites(pipe)
         got["n_tracked"] = [r.get("n_tracked", 0) for r in pipe.log.rows]
         got["iterations"] = pipe.photo_iterations
         got["levels_x_iterations"] = (pipe.vio_cfg.pyramid_levels
@@ -3305,24 +3493,229 @@ def rig_spread(name, runs):
     emit(out)
 
 
+def frame_kernels(seq, cfg, warm=12, frames=10):
+    """{device kernel name: [launches, device ms] a frame} over `frames`
+    fused LIVO frames after `warm` (the capture among them), under
+    torch.profiler; the pipeline is built, captured and replayed under
+    whatever mode the caller set."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    pipe = LIVOPipeline(cfg, "livo", device="cuda")
+    pipe.push_sequence(seq)
+    pipe.poll(max_frames=warm, flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        n = pipe.poll(max_frames=frames, flush=True)
+        torch.cuda.synchronize()
+    check(n == frames, f"profiled {n} frames, wanted {frames}")
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = out.setdefault(e.name, [0.0, 0.0])
+            k[0] += 1.0 / frames
+            k[1] += e.device_time / 1e3 / frames
+    del pipe
+    free_device_memory()
+    return out
+
+
+# aten ops whose CUDA kernels deterministic algorithms may replace
+DET_OP_WORDS = ("scatter", "index_put", "index_add", "index_copy", "cumsum",
+                "pad", "put_", "index_fill")
+
+
+AUDIT_KEYS = ("duplicate_lanes", "conflicting_lanes", "conflicting_targets",
+              "conflicting_targets_in_sink")
+
+
+def _dup_audit(targets, values, sink):
+    """AUDIT_KEYS of a write of `values` (one row per lane) to flat
+    `targets`: lanes whose target repeats, those of them whose value
+    differs from the lane before it on that target, the distinct targets
+    so written, and how many of those are sinks (`sink(t)`: a row or
+    column the caller drops)."""
+    targets = targets.reshape(-1)
+    if targets.numel() < 2:
+        return 0, 0, 0, 0
+    values = values.reshape(targets.numel(), -1)
+    order = torch.sort(targets, stable=True).indices
+    t, v = targets[order], values[order]
+    same = t[1:] == t[:-1]
+    differ = same & (v[1:] != v[:-1]).any(-1)
+    conflict = torch.unique(t[1:][differ]).tolist()
+    return (int(same.sum()), int(differ.sum()), len(conflict),
+            sum(bool(sink(c)) for c in conflict))
+
+
+def op_sources(seq, cfg, warm=4, frames=4, device="cuda"):
+    """Where the ops that deterministic algorithms may reroute (names with
+    a word of DET_OP_WORDS) are called in `frames` split LIVO frames
+    after `warm`, and whether their result depends on the order: every
+    aten call is seen through a TorchDispatchMode, attributed to the
+    innermost frame of the port on the Python stack, and for the writes
+    that can meet duplicate targets (scatter_, index_put_ without
+    accumulate, index_copy_) the duplicates counted, those with unequal
+    values, and how many of those land in the write's last row or
+    column along its dimension (the port's sinks); for index_add_,
+    whether every added value is a whole number (counts are exact in any
+    order below 2^24). Returns {op: {site: numbers a frame}}."""
+    import traceback
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    out = {}
+
+    def audit(name, args, kwargs):
+        if name.startswith("aten.scatter_.") or name == "aten.scatter.src":
+            self_, dim, index, src = args[:4]
+            if not isinstance(src, torch.Tensor):
+                src = torch.full(index.shape, float(src), device=index.device)
+            dim = dim % self_.dim()
+            coords = list(torch.meshgrid(
+                *[torch.arange(n, device=index.device) for n in index.shape],
+                indexing="ij"))
+            coords[dim] = index
+            flat = sum(c * int(torch.tensor(self_.shape[k + 1:]).prod())
+                       for k, c in enumerate(coords))
+            vals = src[tuple(slice(0, n) for n in index.shape)]
+            last = self_.shape[dim] - 1
+            stride = int(torch.tensor(self_.shape[dim + 1:]).prod())
+            return _dup_audit(flat, vals[..., None],
+                              lambda f: (f // stride) % self_.shape[dim] == last)
+        if name.startswith("aten.index_put_") or name.startswith("aten._index_put_impl_"):
+            self_, indices, values = args[:3]
+            acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+            if (acc or len(indices) != 1 or indices[0] is None
+                    or indices[0].dtype == torch.bool):
+                return None
+            idx = indices[0].reshape(-1)
+            vals = values.expand(indices[0].shape + self_.shape[1:])
+            return _dup_audit(idx, vals.reshape(idx.numel(), -1),
+                              lambda r: r == self_.shape[0] - 1)
+        if name.startswith("aten.index_copy_"):
+            self_, dim, index, source = args[:4]
+            rows = source.movedim(dim, 0).reshape(index.numel(), -1)
+            return _dup_audit(index, rows,
+                              lambda r: r == self_.shape[dim] - 1)
+        if name.startswith("aten.index_add_"):
+            src = args[3]
+            return (bool(torch.all(src == torch.round(src))),)
+        return None
+
+    class Audit(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            name = str(func)
+            if any(w in name for w in DET_OP_WORDS):
+                site = next((f"{f.filename.split('fast_livo2_tpu_torch/')[-1]}:"
+                             f"{f.lineno} {f.name}"
+                             for f in reversed(traceback.extract_stack())
+                             if "fast_livo2_tpu_torch/" in f.filename),
+                            "outside the port")
+                with torch.utils._python_dispatch._disable_current_modes():
+                    found = audit(name, args, kwargs)
+                rec = out.setdefault(name, {}).setdefault(site, {"calls": 0})
+                rec["calls"] += 1.0 / frames
+                if found is not None and len(found) == len(AUDIT_KEYS):
+                    for k, v in zip(AUDIT_KEYS, found):
+                        rec[k] = rec.get(k, 0) + v / frames
+                elif found is not None:
+                    rec["whole_numbers"] = rec.get("whole_numbers", True) and found[0]
+                if name.startswith("aten.cumsum"):
+                    rec["dtype"] = str(args[0].dtype)
+            return func(*args, **kwargs)
+
+    cfg = copy.deepcopy(cfg)
+    cfg.tpu.fused_frame = False
+    pipe = LIVOPipeline(cfg, "livo", device=device)
+    pipe.push_sequence(seq)
+    pipe.poll(max_frames=warm, flush=True)
+    with Audit():
+        n = pipe.poll(max_frames=frames, flush=True)
+    check(n == frames, f"audited {n} frames, wanted {frames}")
+    del pipe
+    if device == "cuda":
+        free_device_memory()
+    return out
+
+
+def det_kernels(name):
+    """Which ops torch's deterministic algorithms reroute in a fused LIVO
+    frame of rig NAME (`chip_smoke.py --det-kernels NAME`): its recording
+    built and converted as the rigs phase does, its yaml pair with
+    tpu.fused_frame, then 10 replayed frames profiled in the default mode
+    and 10 under deterministic(), each pipeline captured in its mode, in
+    turns (default, deterministic, deterministic, default). Prints one
+    line: the kernel names found in one mode's profiles and in none of
+    the other's, the names whose launches a frame differ between the
+    modes (a profile can drop events, so a count is the largest of a
+    mode's profiles), and where in the port the candidate ops are called
+    (`op_sources`, split frames in the default mode); every profile goes
+    to chiprun_out/det_kernels_NAME.json."""
+    from fast_livo2_tpu_torch.io import dataset
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    sensor, camera = rig_paths(name)
+    cfg = load_config(sensor, camera)
+    cfg.tpu.fused_frame = True
+    root = os.path.join(REPO, "build", "det_kernels", name)
+    shutil.rmtree(root, ignore_errors=True)
+    make_rig(name, os.path.join(root, "rec"))
+    out = {"phase": f"det_kernels_{name}"}
+    seq = dataset.load_sequence(
+        rig_seq_dir(name, cfg, os.path.join(root, "rec"), root, out), cfg=cfg)
+    profiles = {"default": [], "deterministic": []}
+    for mode in ("default", "deterministic", "deterministic", "default"):
+        with deterministic() if mode == "deterministic" else contextlib.nullcontext():
+            profiles[mode].append(frame_kernels(seq, cfg))
+    sources = op_sources(seq, cfg)
+    names = {m: set().union(*p) for m, p in profiles.items()}
+    most = {m: {k: max(p.get(k, [0.0])[0] for p in ps) for k in names[m]}
+            for m, ps in profiles.items()}
+    both = names["default"] & names["deterministic"]
+    out.update(
+        only_deterministic=sorted(k[:160] for k in names["deterministic"]
+                                  - names["default"]),
+        only_default=sorted(k[:160] for k in names["default"]
+                            - names["deterministic"]),
+        launches_differ={k[:160]: [most["default"][k], most["deterministic"][k]]
+                         for k in sorted(both)
+                         if abs(most["default"][k] - most["deterministic"][k]) > 0.5},
+        kernel_ms_per_frame={m: [sum(v[1] for v in p.values()) for p in ps]
+                             for m, ps in profiles.items()},
+        launches_per_frame={m: [sum(v[0] for v in p.values()) for p in ps]
+                            for m, ps in profiles.items()},
+        op_sources_split_frame=sources, nvidia_smi=nvidia_smi())
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", f"det_kernels_{name}.json"),
+              "w") as f:
+        json.dump({"summary": out, "profiles": profiles}, f, indent=1)
+    emit(out)
+
+
 def phase_rig(name, built, ready):
     """One rig from its recording to a trajectory on the card: (bag rigs)
     `python -m fast_livo2_tpu_torch.convert_rosbag` with the yaml's lidar
     type, blind, point_filter_num and topics, in a subprocess; then the
     CLI with the shipped yaml pair, split and fused (a copy of the yaml
     with tpu.fused_frame, one CUDA graph a frame) in turns (split, fused,
-    fused, split: each side's median over its two runs), then the same
-    pair under deterministic algorithms. Gates on the default runs
-    (mars_lvig: on the deterministic pair, RIGS says why): ATE (ground
-    truth interpolated at each pose) < 0.05 m (avia, ntu_viral) or 0.06
-    m (hilti22), mean tracked points > 20 from frame 3 on; drift <= 0.5
-    % of the path (mars_lvig, whose tracked points are reported). On
-    every rig: fused vs split 0.0 m apart under deterministic algorithms
-    (as parity_fused compares the frame forms); the default pairs within
-    the golden tolerances, but for avia and mars_lvig, whose default
-    runs part from one another by more (RIGS says why), where the gap is
-    reported; one graph, 0 host syncs in every replayed frame; K1
-    once a frame; K2 on every fused VIO frame levels x iterations times
+    fused, split: each side's median over its two runs); mars_lvig, whose
+    gates are on it (RIGS says why), then the same pair under
+    deterministic algorithms. Gates on the default runs (mars_lvig: on
+    the deterministic pair): ATE (ground truth interpolated at each pose)
+    < 0.05 m (avia, ntu_viral) or 0.06 m (hilti22), mean tracked points >
+    20 from frame 3 on; drift <= 0.5 % of the path (mars_lvig, whose
+    tracked points are reported). On every rig: each fused run and the
+    split run beside it 0.0 m apart, and the two runs of each form
+    (split, split_2 and fused, fused_2) 0.0 m apart (every float
+    scatter-add sums in lane order, ops/ordered_add; deterministic
+    algorithms change no value read); one graph, 0 host syncs in every
+    replayed frame; K1 once a frame; ordered_add once a site a frame;
+    K2 on every fused VIO frame levels x iterations times
     (0 on the fisheye) and on a split run once an iteration that took
     effect. The phase's line is printed before a failed gate fails it.
     Returns the first fused run's launches."""
@@ -3346,7 +3739,10 @@ def phase_rig(name, built, ready):
     path = float(np.sum(np.linalg.norm(np.diff(g["pos"], axis=0), axis=1)))
     fused_cfg = os.path.join(root, "fused.yaml")
     fused_yaml(sensor, fused_cfg)
-    forms = ("split", "fused", "fused_2", "split_2", "split_det", "fused_det")
+    # the deterministic pair only where the gates are on it (mars_lvig)
+    forms = (("split", "fused", "fused_2", "split_2")
+             + (() if r.get("gate_default", True) else ("split_det",
+                                                          "fused_det")))
     runs = {}
     for form in forms:
         ctx = (deterministic() if form.endswith("_det")
@@ -3401,13 +3797,12 @@ def phase_rig(name, built, ready):
                                      per_frame))
         out[form] = nums
     for a, b in (("fused", "split"), ("fused_2", "split_2"),
-                 ("fused_det", "split_det")):
+                 ("fused_det", "split_det"), ("split_2", "split"),
+                 ("fused_2", "fused")):
+        if a not in runs:
+            continue
         dp, dR = traj_diff(runs[a]["traj"], runs[b]["traj"])
-        if a.endswith("_det"):
-            gate(dp == dR == 0.0, f"rig {name}: {a} vs {b} {dp} m, {dR}")
-        elif r.get("gate_default_pair", True):
-            gate(dp <= POS_TOL_M and dR <= ROT_TOL,
-                 f"rig {name}: {a} vs {b} {dp} m, {dR}")
+        gate(dp == dR == 0.0, f"rig {name}: {a} vs {b} {dp} m, {dR}")
         out[f"{a}_vs_{b}"] = {"max_pos_diff_m": dp, "max_rot_diff": dR}
     # each side's median frame over its two runs, taken in turns (a
     # split run's first frame and a fused run's first two are set-up)
@@ -3556,6 +3951,9 @@ def main(argv):
     if mode == "--rig-spread":
         rig_spread(argv[1], int(argv[2]) if len(argv) > 2 else 4)
         return 0
+    if mode == "--det-kernels":
+        det_kernels(argv[1])
+        return 0
     if mode == "--make-sequences":
         os.nice(19)  # behind the card's phases on the host's cores
         make_sequences(argv[1])
@@ -3588,13 +3986,13 @@ def main(argv):
         phase_parity(seq, traj, "livo", PARITY_FRAMES_LIVO)
         k1_frame = phase_profile(seq, "livo")
         k3, k3_phase_launches = phase_kernel_gather()
+        k4, k4_phase_launches = phase_kernel_ordered_add()
         phase_run_cli(seq, len(traj))
         phase_resume(seq, len(traj))
         free_device_memory()
         fused = {}
         for mode in ("only_lio", "livo"):
             fused[mode] = phase_pipeline_fused(seq, mode)
-            phase_parity_fused(seq, mode)
             fused_frame = phase_profile_fused(seq, mode)
             free_device_memory()
         phase_stage_timing(seq)
@@ -3641,11 +4039,16 @@ def main(argv):
     k3["launches_fused"] = fused["livo"]["gather_rows"]
     k3["launches"] = launches["gather_rows"]
     k3["phase_launches"] = k3_phase_launches
+    # ordered_add: the LIVO main path's split run (checked there: once a
+    # site a frame), its fused run, and its own phase's count beside them
+    k4["launches"] = launches["ordered_add"]
+    k4["launches_fused"] = fused["livo"]["ordered_add"]
+    k4["phase_launches"] = k4_phase_launches
     # the launches of each of this slice's phases (their fused runs)
     for k, name in ((k1, "cov_scan"), (k2, "photo_iteration"),
-                    (k3, "gather_rows")):
+                    (k3, "gather_rows"), (k4, "ordered_add")):
         k["launches_phases"] = {ph: n[name] for ph, n in phases.items()}
-    emit({"kernels": [k1, k2, k3]})
+    emit({"kernels": [k1, k2, k3, k4]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -77,14 +77,14 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from ..ops import cov_scan
+from ..ops import cov_scan, ordered_add
 from ..ops import photo_iteration as photo_mod
 from . import imu as imu_mod
 from . import vio as vio_mod
 from . import voxel_map as vmap_mod
 
 # the kernel wrappers whose launches a replay repeats
-_COUNTED = (cov_scan, photo_mod)
+_COUNTED = (cov_scan, photo_mod, ordered_add)
 # the pipeline's state attributes a frame reads or writes, with their
 # types (None: one tensor); the pool and ring exist in LIVO mode only
 _STATE = (("packed", None), ("vmap_state", vmap_mod.VoxelMap),
@@ -231,15 +231,15 @@ class FrameGraphs:
 
     def summary(self) -> dict:
         """The captures of this pipeline: count, seconds and reserved bytes
-        each, the launches of K1 and K2 a replay makes, and the bytes a
-        frame copies back into the static state."""
+        each, the launches of K1, K2 and ordered_add a replay makes, and
+        the bytes a frame copies back into the static state."""
         return {
             "graphs": len(self.graphs),
             "keys": [list(k) for k in self.graphs],
             "capture_seconds": [g.seconds for g in self.graphs.values()],
             "pool_bytes": [g.pool_bytes for g in self.graphs.values()],
-            "launches_per_replay": [dict(zip(("cov_scan", "photo_iteration"),
-                                             g.launches))
+            "launches_per_replay": [dict(zip(("cov_scan", "photo_iteration",
+                                              "ordered_add"), g.launches))
                                     for g in self.graphs.values()],
             "copy_back_bytes_per_frame": self.copy_back_bytes,
         }

@@ -39,7 +39,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import so3
+from ..ops import ordered_add, so3
 from ..ops import voxel_hash as _vh
 from ..parallel import sharding as shd
 from .state import DIM_STATE, NavState, boxminus, boxplus, select
@@ -109,7 +109,11 @@ def voxel_downsample(pts: torch.Tensor, valid: torch.Tensor, leaf: float,
     new_seg[1:] = (skx[1:] != skx[:-1]) | (skyz[1:] != skyz[:-1])
     seg = torch.cumsum(new_seg.to(torch.int64), dim=0) - 1
     seg = torch.where(sval & (seg < max_out), seg, max_out)  # max_out = sink
-    sums = pts.new_zeros((max_out + 1, 3)).index_add_(0, seg, sp)
+    # seg is non-decreasing: the points are sorted into their voxels
+    sums = ordered_add.ordered_index_add_(pts.new_zeros((max_out + 1, 3)),
+                                          seg, sp, drop=max_out,
+                                          dst_sorted=True)
+    # a sum of 1.0s, exact in any order below 2^24
     cnts = pts.new_zeros((max_out + 1,)).index_add_(
         0, seg, torch.ones_like(sp[:, 0]))
     sums, cnts = sums[:max_out], cnts[:max_out]

@@ -40,7 +40,7 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from ..ops import eig3, voxel_hash
+from ..ops import eig3, ordered_add, voxel_hash
 from ..parallel import sharding as shd
 
 EMPTY = voxel_hash.EMPTY
@@ -401,17 +401,20 @@ def _pre_meta(rec, C, layers, found, slot):
 def _accumulate(stats_flat, C, layers, keys, slots, ok, vsize, pts, var6):
     """The ONE insert write for a set of layers: a 16-wide scatter-add of
     the running moments, in place into stats_flat ((L*C + 1, 16), last
-    row the sink) for lanes passing the freeze/cut/validity gates.
-    keys/slots/ok (J, N, ...); vsize (J,); pts/var6 (J, N, 3)/(J, N, 6)."""
+    row the sink) for lanes passing the freeze/cut/validity gates, each
+    voxel summed in lane order (ops/ordered_add; the card leaves the sink
+    unsummed). keys/slots/ok (J, N, ...); vsize (J,); pts/var6 (J, N,
+    3)/(J, N, 6)."""
     voxel_center = (keys.to(torch.float32) + 0.5) * vsize[:, None, None]
     p_local = pts - voxel_center
     pp6 = sym6(p_local[..., :, None] * p_local[..., None, :])
     one_col = torch.ones(p_local.shape[:-1] + (1,), dtype=torch.float32,
                          device=pts.device)
     contrib = torch.cat([one_col, p_local, pp6, var6], dim=-1)
-    dst = torch.where(ok, layers[:, None] * C + slots.long(),
-                      stats_flat.shape[0] - 1)
-    stats_flat.index_add_(0, dst.reshape(-1), contrib.reshape(-1, STATS_W))
+    sink = stats_flat.shape[0] - 1
+    dst = torch.where(ok, layers[:, None] * C + slots.long(), sink)
+    ordered_add.ordered_index_add_(stats_flat, dst.reshape(-1),
+                                   contrib.reshape(-1, STATS_W), drop=sink)
 
 
 def _mark_cut(stats_flat, C, layers, slots, should_cut, cnt_pre):
@@ -448,9 +451,11 @@ def update_map(vmap_state: VoxelMap, pts_w: torch.Tensor, var_w: torch.Tensor,
     a write must see the same points on every rank (the claim rounds
     mutate the table between probe rounds). So pts_w / var_w / valid are
     this rank's shard, gathered (one all_reduce of (N, 10) floats) and
-    inserted on every rank, on a card under torch's deterministic
-    algorithms: the float scatter-adds then sum in one order, and the
-    replicas stay bit for bit equal frame after frame."""
+    inserted on every rank. The moments' scatter-add sums each voxel in
+    lane order on every device (ops/ordered_add), so the replicas stay
+    bit for bit equal frame after frame; the insert also runs under
+    torch's deterministic algorithms on a card, which fixes the order of
+    the other writes' duplicate lanes (they differ only in sink rows)."""
     var_w6 = var_w if var_w.dim() == 2 else sym6(var_w)
     if mesh is not None:
         rows = shd.all_gather_rows(torch.cat(

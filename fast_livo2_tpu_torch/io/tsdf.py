@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import ordered_add
+
 
 class TSDFVolume(NamedTuple):
     tsdf: torch.Tensor  # (G, G, G) float32 in [-1, 1]
@@ -95,8 +97,9 @@ def integrate(vol: TSDFVolume, pts_w: torch.Tensor, valid: torch.Tensor,
     w_new = inb.reshape(-1).to(torch.float32)
     wsum = torch.zeros((g3 + 1,), dtype=torch.float32, device=dev)
     ssum = torch.zeros((g3 + 1,), dtype=torch.float32, device=dev)
-    wsum.index_add_(0, flat, w_new)
-    ssum.index_add_(0, flat, sdf.reshape(-1) * w_new)
+    wsum.index_add_(0, flat, w_new)  # 1.0s and 0.0s: exact in any order
+    ordered_add.ordered_index_add_(ssum[:, None], flat,
+                                   (sdf.reshape(-1) * w_new)[:, None], drop=g3)
     wsum = wsum[:g3].reshape(vol.tsdf.shape)
     ssum = ssum[:g3].reshape(vol.tsdf.shape)
     w_old = vol.weight

@@ -175,10 +175,11 @@ def agree(flag: bool, mesh: Optional[Mesh]) -> bool:
 @contextlib.contextmanager
 def deterministic(device: torch.device):
     """torch's deterministic algorithms on a CUDA device for the block
-    (the map's float scatter-adds then sum in a fixed order, so replicas
-    that apply the same update hold the same bits); nothing on the CPU,
-    whose scatter-adds are already ordered. warn_only: an op with no
-    deterministic form warns instead of raising."""
+    (every write with duplicate targets then takes one order, so replicas
+    that apply the same update hold the same bits, sink rows included;
+    the float scatter-adds are ordered in either mode, ops/ordered_add);
+    nothing on the CPU, whose writes are already ordered. warn_only: an
+    op with no deterministic form warns instead of raising."""
     if torch.device(device).type != "cuda":
         yield
         return

@@ -15,7 +15,7 @@ import torch
 
 from fast_livo2_tpu_torch.ops import _launch
 from fast_livo2_tpu_torch.ops import cov_scan
-from fast_livo2_tpu_torch.ops import gather
+from fast_livo2_tpu_torch.ops import gather, ordered_add
 from fast_livo2_tpu_torch.ops import photo_iteration as photo
 
 # tests/test_imu.py:176-177: two float32 evaluation orders of the same
@@ -992,3 +992,121 @@ def test_fused_pipeline_is_freed_without_gc():
     finally:
         if enabled:
             gc.enable()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["map_insert", "downsample", "tsdf"])
+def test_ordered_add_kernel_matches_cpu_index_add_bitwise(name):
+    """ordered_add against the CPU's index_add_ at each call site's shape
+    (chip_smoke.ORDERED_ADD_SHAPES): bit for bit on every row but the
+    sink, which the kernel leaves as it was; two calls the same bits."""
+    _need_card()
+    import chip_smoke
+
+    base, dst, src, sink = chip_smoke.ordered_add_case(name)
+    want = torch.from_numpy(base.copy()).index_add_(
+        0, torch.from_numpy(dst), torch.from_numpy(src))
+    b, d, s = (torch.from_numpy(a).cuda() for a in (base, dst, src))
+    before = ordered_add.LAUNCHES
+    got = [ordered_add.ordered_index_add_(b.clone(), d, s, drop=sink,
+                                          dst_sorted=name == "downsample")
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ordered_add.LAUNCHES == before + 2
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0][:sink].cpu(), want[:sink])
+    assert torch.equal(got[0][sink].cpu(), torch.from_numpy(base[sink]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,W,R", [(0, 4, 8), (1, 1, 3), (5000, 7, 33),
+                                   (70000, 2, 70001)])
+def test_ordered_add_kernel_without_sink(n, W, R):
+    """No sink (drop=None): every row summed, the CPU's bits; no lane, one
+    lane, an odd width, more lanes than rows and a grid of many blocks."""
+    _need_card()
+    rng = np.random.default_rng(n)
+    base = torch.from_numpy(rng.normal(size=(R, W)).astype(np.float32))
+    dst = torch.from_numpy(rng.integers(0, R, n))
+    src = torch.from_numpy(rng.normal(size=(n, W)).astype(np.float32))
+    want = base.clone().index_add_(0, dst, src)
+    got = ordered_add.ordered_index_add_(base.cuda(), dst.cuda(), src.cuda())
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_ordered_add_wrapper_rejects_bad_input():
+    """A wrong dtype, a non-contiguous tensor or a dst on another device
+    raises; nothing launches and nothing falls back to index_add_."""
+    _need_card()
+    base = torch.zeros((16, 4), device="cuda")
+    dst = torch.zeros(8, dtype=torch.int64, device="cuda")
+    src = torch.ones((8, 4), device="cuda")
+    before = ordered_add.LAUNCHES
+    with pytest.raises(TypeError):
+        ordered_add.ordered_index_add_(base.double(), dst, src.double())
+    with pytest.raises(TypeError):
+        ordered_add.ordered_index_add_(base, dst.int(), src)
+    with pytest.raises(ValueError):
+        ordered_add.ordered_index_add_(torch.zeros((4, 16), device="cuda").t(),
+                                       dst, src)
+    with pytest.raises(ValueError):
+        ordered_add.ordered_index_add_(base, dst.cpu(), src)
+    with pytest.raises(ValueError):
+        ordered_add.ordered_index_add_(base, dst, src[:, :3])
+    assert ordered_add.LAUNCHES == before
+    assert not bool(base.any())
+
+
+def _read_state(pipe):
+    """The state a frame reads: _state_tensors without the pool's sink
+    row."""
+    return [pipe.packed, *pipe.vmap_state, *pipe.noise,
+            *(t[:-1] for t in pipe.pool[:3]), pipe.pool.alloc, *pipe.ring]
+
+
+@pytest.mark.cuda
+def test_default_mode_fused_livo_runs_repeat_bitwise():
+    """Two fused LIVO runs of the core scene in the default mode (no
+    deterministic algorithms): every frame's state bit for bit the same,
+    as the float scatter-adds sum in lane order; each run one capture, 0
+    host syncs in a replay, and ordered_add launched once a site a
+    replay (the downsample and the compacted insert's layer-0 and
+    descending writes where the insert descends, else one). The visual
+    pool's sink row is left out: the pool write sends every dropped row
+    there, duplicates in any order, and nothing reads it (core/vio.py)."""
+    _need_card()
+    import chip_smoke
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg, seq = _small_livo(3.2, fused_frame=True)
+    pipes = [LIVOPipeline(cfg, "livo", device="cuda") for _ in range(2)]
+    for p in pipes:
+        p.push_sequence(seq)
+    sites = chip_smoke.ordered_add_sites(pipes[0])
+    while pipes[0]._img_queue:
+        replay = bool(pipes[0]._frame_graphs.graphs)
+        for p in pipes:
+            if replay:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                n = p.poll(max_frames=1, flush=True)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert n == 1
+        for i, (a, b) in enumerate(zip(_read_state(pipes[0]),
+                                       _read_state(pipes[1]), strict=True)):
+            assert torch.equal(a, b), (pipes[0].frame_id, i)
+    for p in pipes:
+        s = p._frame_graphs.summary()
+        assert s["graphs"] == 1
+        assert s["launches_per_replay"][0]["ordered_add"] == sites
+    assert pipes[0].frame_id >= 24
+    for p in pipes:
+        p._finalize_host_views()
+    for (ta, Ra, pa), (tb, Rb, pb) in zip(pipes[0].trajectory,
+                                          pipes[1].trajectory, strict=True):
+        assert ta == tb and np.array_equal(Ra, Rb) and np.array_equal(pa, pb)

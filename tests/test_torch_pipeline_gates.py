@@ -32,6 +32,15 @@ def test_only_lio_tracks_synthetic_groundtruth(seq):
     assert effs and np.mean(effs) > 300
 
 
+def test_lio_effective_points_nonzero(seq):
+    """tests/test_pipeline_lio.py:45: thousands of points a frame match
+    a map plane in the first frames."""
+    pipe = LIVOPipeline(small_config(), slam_mode="only_lio", device="cpu")
+    pipe.process(seq, max_frames=5)
+    effs = [r["n_eff"] for r in pipe.log.rows if r["n_eff"] > 0]
+    assert effs and np.mean(effs) > 300
+
+
 def test_only_lo_mode_runs():
     seq = synthetic.make_sequence(
         duration=2.0, lidar_hz=10.0, imu_hz=200.0, seed=2,
