@@ -1620,7 +1620,7 @@ def phase_profile_fused(seq, mode, warm=12, frames=10):
 
 def phase_stage_timing(seq):
     """LIVO with tpu.stage_timing (the map insert before VIO, the device
-    loops, CUDA events around each stage read once a frame): every
+    loops, stage marks on the card read once, at the end): every
     stage's ms > 0 on each staged frame, the table printed, and the
     trajectory against the split run with deferred_map_insert = False
     (the same order). Two default runs of one form repeat bit for bit

@@ -64,6 +64,13 @@ What a graph needs, and how this module provides it:
 - Launch counts. The kernel wrappers count their launches; a capture
   launches nothing, so the counts the wrappers added during capture are
   taken back and added again at each replay, which launches them.
+- Tracing (LIVOPipeline.enable_tracing before the first capture). The
+  frame's StageClock (utils/timing.py) is one of its outputs: its marks
+  are kernels of the graph, its buffer is rewritten at every replay, and
+  under the capture it counts the kernel nodes and wrapper launches each
+  stage added (`kernel_nodes_by_stage`, `launches_by_stage` in
+  `summary()`), which a profiler can only approximate, as it drops
+  events.
 - No fallback. If capture or replay fails, the error is raised, a
   failed capture naming the source line that broke it; the frame never
   runs eagerly instead.
@@ -85,6 +92,7 @@ from . import voxel_map as vmap_mod
 
 # the kernel wrappers whose launches a replay repeats
 _COUNTED = (cov_scan, photo_mod, ordered_add)
+_NAMES = ("cov_scan", "photo_iteration", "ordered_add")
 # the pipeline's state attributes a frame reads or writes, with their
 # types (None: one tensor); the pool and ring exist in LIVO mode only
 _STATE = (("packed", None), ("vmap_state", vmap_mod.VoxelMap),
@@ -99,6 +107,13 @@ class Captured(NamedTuple):
     seconds: float  # capture time (the warm-up frame excluded)
     pool_bytes: int  # device memory reserved by the capture (its pool)
     scratch: tuple  # K2's scratch the graph writes (kept alive with it)
+    nodes_by_stage: dict  # {stage path: kernel nodes}, traced graphs
+    launches_by_stage: dict  # {stage path: {wrapper: launches}}, traced
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """The counted wrappers' launches so far (a StageClock's counters)."""
+    return tuple(mod.LAUNCHES for mod in _COUNTED)
 
 
 def _capture_error(e: BaseException) -> str:
@@ -218,11 +233,15 @@ class FrameGraphs:
         launches = tuple(mod.LAUNCHES - b for mod, b in zip(_COUNTED, before))
         for mod, b in zip(_COUNTED, before):
             mod.LAUNCHES = b  # a capture launches nothing
+        clock = captured[-1]
         self.graphs[key] = Captured(
             graph, captured, launches, seconds,
             torch.cuda.memory_reserved(self.pipe.device) - reserved,
             photo_mod._SCRATCH.get((self.side.device.index,
-                                    self.side.cuda_stream), ()))
+                                    self.side.cuda_stream), ()),
+            clock and clock.kernel_nodes_by_stage(),
+            clock and {k: {n: c for n, c in zip(_NAMES, v) if c}
+                       for k, v in clock.launches_by_stage().items()})
         back = [self._state["packed"], *self._state["vmap_state"]]
         if use_vio:
             back.append(self._state["pool"].alloc)
@@ -232,14 +251,20 @@ class FrameGraphs:
     def summary(self) -> dict:
         """The captures of this pipeline: count, seconds and reserved bytes
         each, the launches of K1, K2 and ordered_add a replay makes, and
-        the bytes a frame copies back into the static state."""
+        the bytes a frame copies back into the static state; for graphs
+        captured with tracing on, their kernel nodes and those launches by
+        stage path (None otherwise) and the stage marks a replay makes."""
+        gs = list(self.graphs.values())
         return {
             "graphs": len(self.graphs),
             "keys": [list(k) for k in self.graphs],
-            "capture_seconds": [g.seconds for g in self.graphs.values()],
-            "pool_bytes": [g.pool_bytes for g in self.graphs.values()],
-            "launches_per_replay": [dict(zip(("cov_scan", "photo_iteration",
-                                              "ordered_add"), g.launches))
-                                    for g in self.graphs.values()],
+            "capture_seconds": [g.seconds for g in gs],
+            "pool_bytes": [g.pool_bytes for g in gs],
+            "launches_per_replay": [dict(zip(_NAMES, g.launches)) for g in gs],
             "copy_back_bytes_per_frame": self.copy_back_bytes,
+            "kernel_nodes_by_stage": [g.nodes_by_stage for g in gs],
+            "launches_by_stage": [g.launches_by_stage for g in gs],
+            "stage_marks_per_replay": [
+                None if g.outputs[-1] is None else 2 * len(g.outputs[-1].spans)
+                for g in gs],
         }

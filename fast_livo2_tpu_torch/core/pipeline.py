@@ -34,6 +34,14 @@ With map sliding enabled every form reads one 3-float position every 10
 frames. Trajectory and diagnostics stay on the device until
 `_finalize_host_views` converts them once, at the end.
 
+Tracing (`enable_tracing`, off by default): every frame after the first,
+in any form, runs under a StageClock (utils/timing.py), whose marks on
+the device bound each `annotate`d stage and sub-stage (inside the
+captured graph too) and become the rows' `{stage}_ms` columns and
+`stage_spans` at `_finalize_host_views`; each poll's host work is kept
+as spans (`tracing.spans`). With it off, no mark is made and the marks'
+kernel is never built.
+
 Outputs, as in the JAX package: the trajectory; with
 `pcd_save.pcd_save_en` each frame's posterior world points (coloured from
 the frame image on VIO frames) stay on the device until `save_pcd` /
@@ -66,6 +74,7 @@ conditioning) when the submit gate `refine_gate` is on.
 """
 
 import bisect
+import contextlib
 import os
 import time
 from typing import List, NamedTuple, Optional, Tuple
@@ -81,6 +90,7 @@ from ..ops import eig3, so3
 from ..parallel import sharding as shd
 from ..utils.config import LIVOConfig
 from ..utils.host_copy import host_copy, host_value
+from ..utils import timing
 from ..utils.timing import annotate
 from . import imu as imu_mod
 from . import lio as lio_mod
@@ -286,6 +296,23 @@ class LIVOPipeline:
             from .frame_graph import FrameGraphs
 
             self._frame_graphs = FrameGraphs(self)
+        self.tracing: Optional[timing.FrameTracer] = None  # enable_tracing
+
+    def enable_tracing(self):
+        """Trace every later frame: the device time of each `annotate`d
+        stage and sub-stage from marks made in stream order (in the
+        captured frame graph too), host spans of each poll in
+        `tracing.spans`, and for each captured graph its kernel nodes by
+        stage (`FrameGraphs.summary()`). Call before the first fused frame
+        is captured, which then holds the marks."""
+        if self._frame_graphs is not None and self._frame_graphs.graphs:
+            raise RuntimeError("enable_tracing: a frame graph was captured "
+                               "without the marks; enable before the first "
+                               "fused frame")
+        counters = None
+        if self._frame_graphs is not None:
+            from .frame_graph import launch_counts as counters
+        self.tracing = timing.FrameTracer(self.device, counters)
 
     def _put(self, x):
         """Upload a host array (or numpy scalar) to this pipeline's device.
@@ -433,23 +460,26 @@ class LIVOPipeline:
         the map insert (after VIO when deferred). Reads the pipeline's
         state and writes it back in place (`copy_`) into the same tensors
         (the static buffers of the captured graph, core/frame_graph.py).
-        Returns (diag, vdiag or None, iterations or None, pg): fresh
-        tensors that a replay overwrites."""
-        vmap = self.vmap_state
-        packed, vmap, diag, pg = self._frame_step(
-            self.packed, vmap, imu_pack, pts_pack, first=False,
-            do_map=not defer_map, device_loop=True)
-        vdiag = n_it = None
-        if use_vio:
-            packed, vdiag, n_it, pool = self._vio_half(
-                packed, img, pg, fid, vmap, device_loop=True)
-            self.pool.alloc.copy_(pool.alloc)
-        if defer_map:
-            vmap = self._insert(vmap, pg)
-        self.packed.copy_(packed)
-        for dst, src in zip(self.vmap_state, vmap):
-            dst.copy_(src)
-        return diag, vdiag, n_it, pg
+        Returns (diag, vdiag or None, iterations or None, pg, the frame's
+        StageClock or None): fresh tensors that a replay overwrites."""
+        clock = None if self.tracing is None else self.tracing.clock()
+        with clock or contextlib.nullcontext():
+            vmap = self.vmap_state
+            packed, vmap, diag, pg = self._frame_step(
+                self.packed, vmap, imu_pack, pts_pack, first=False,
+                do_map=not defer_map, device_loop=True)
+            vdiag = n_it = None
+            if use_vio:
+                packed, vdiag, n_it, pool = self._vio_half(
+                    packed, img, pg, fid, vmap, device_loop=True)
+                self.pool.alloc.copy_(pool.alloc)
+            if defer_map:
+                vmap = self._insert(vmap, pg)
+            with annotate("copy_back"):
+                self.packed.copy_(packed)
+                for dst, src in zip(self.vmap_state, vmap):
+                    dst.copy_(src)
+        return diag, vdiag, n_it, pg, clock
 
     def _staged_frame(self, imu_pack, pts_pack, img, fid, use_vio: bool):
         """A non-first frame as timed stages (tpu.stage_timing; the JAX
@@ -457,31 +487,26 @@ class LIVOPipeline:
         lio, map, vio, built from the same calls as `_frame_step`, the map
         insert before VIO (the deferred_map_insert = False order), the
         device loops. Returns (diag, vdiag or None, iterations or None,
-        pg, {stage}_ms): CUDA event time between the stage's bounds on
-        the card (read once, at the end), perf_counter on the CPU."""
-        from ..utils.timing import StageClock
-
-        clock = StageClock(self.device)
-        state_prop, cov_prop, poses = self._stage_propagate(self.packed,
-                                                            imu_pack)
-        clock.lap("propagate")
-        und, valid = self._stage_undistort(state_prop, poses, imu_pack,
-                                           pts_pack)
-        clock.lap("undistort")
-        down, down_valid = self._stage_downsample(und, valid)
-        clock.lap("downsample")
-        self.packed, diag, pg = self._stage_lio(
-            state_prop, cov_prop, self.vmap_state, down, down_valid,
-            device_loop=True)
-        clock.lap("lio")
-        self.vmap_state = self._insert(self.vmap_state, pg)
-        clock.lap("map")
-        vdiag = n_it = None
-        if use_vio:
-            self.packed, vdiag, n_it, self.pool = self._vio_half(
-                self.packed, img, pg, fid, self.vmap_state, device_loop=True)
-            clock.lap("vio")
-        return diag, vdiag, n_it, pg, clock.read()
+        pg, the frame's StageClock): each `annotate`d stage is a span of
+        the clock (the tracer's when tracing), whose marks become the
+        `{stage}_ms` columns at `_finalize_host_views`."""
+        with (self.tracing.clock() if self.tracing is not None
+              else timing.StageClock(self.device)) as clock:
+            state_prop, cov_prop, poses = self._stage_propagate(self.packed,
+                                                                imu_pack)
+            und, valid = self._stage_undistort(state_prop, poses, imu_pack,
+                                               pts_pack)
+            down, down_valid = self._stage_downsample(und, valid)
+            self.packed, diag, pg = self._stage_lio(
+                state_prop, cov_prop, self.vmap_state, down, down_valid,
+                device_loop=True)
+            self.vmap_state = self._insert(self.vmap_state, pg)
+            vdiag = n_it = None
+            if use_vio:
+                self.packed, vdiag, n_it, self.pool = self._vio_half(
+                    self.packed, img, pg, fid, self.vmap_state,
+                    device_loop=True)
+        return diag, vdiag, n_it, pg, clock
 
     def _unpack_pts(self, pts_pack):
         """(pts (N, 3), t_offs (N,), valid (N,)) from either wire format:
@@ -848,6 +873,9 @@ class LIVOPipeline:
             return False
 
         t_frame0 = time.perf_counter()
+        tr = self.tracing  # host spans: (row, name, ...) in tr.spans
+        if tr is not None:
+            tr.row = len(self.trajectory)
         first = not self.map_inited
         # The fused frames write the state back in place: with them on,
         # what is kept past the next frame is copied.
@@ -864,7 +892,10 @@ class LIVOPipeline:
         if self._prefetch is not None and self._prefetch[0] == t_ev:
             imu_pack, pts_pack = self._prefetch[1]
         else:
+            t0 = time.perf_counter()
             imu_pack, pts_pack = self._prepare_packet(t_ev, self._imu_buf())
+            if tr is not None:
+                tr.host("packet", t0)
         self._prefetch = None
         self.last_update_time = t_ev
         use_vio = self._use_images and img is not None and not first
@@ -875,41 +906,53 @@ class LIVOPipeline:
         defer_map = (self.cfg.tpu.deferred_map_insert and not first
                      and not staged)
         img_dev = None
+        t0 = time.perf_counter()
         if use_vio:
             # push_image queued it as uint8; _ship_images may not have
             # uploaded it yet (tpu.img_upload_ahead = 0)
             img_dev = img if isinstance(img, torch.Tensor) else self._put(img)
         # the frame id as a device scalar: a graph reads it from a buffer
         fid = self._put(np.int32(self.frame_id)) if use_vio else None
-        vdiag = n_it = stage_ms = None
+        if tr is not None:
+            tr.host("inputs", t0)
+        vdiag = n_it = clock = None
         if staged:
-            diag, vdiag, n_it, pg, stage_ms = self._staged_frame(
+            diag, vdiag, n_it, pg, clock = self._staged_frame(
                 imu_pack, pts_pack, img_dev, fid, use_vio)
         elif fused:
             run = (self._frame_graphs.run if self._frame_graphs is not None
                    else self._fused_frame)
-            diag, vdiag, n_it, pg = run(imu_pack, pts_pack, img_dev, fid,
-                                        use_vio, defer_map)
+            t0 = time.perf_counter()
+            diag, vdiag, n_it, pg, clock = run(imu_pack, pts_pack, img_dev,
+                                               fid, use_vio, defer_map)
+            if tr is not None:
+                tr.host("replay", t0)
+                t0 = time.perf_counter()
             # a replay overwrites its outputs: copy what is kept
             diag = diag.clone()
             vdiag = None if vdiag is None else vdiag.clone()
             if (self.cfg.publish.pub_effect_point_en
                     or self.cfg.pcd_save.pcd_save_en):
                 pg = ScanPoints(*(t.clone() for t in pg))
+            if tr is not None:
+                tr.host("outputs", t0)
         else:
-            self.packed, self.vmap_state, diag, pg = self._frame_step(
-                self.packed, self.vmap_state, imu_pack, pts_pack,
-                first=first, do_map=not defer_map)
-            if use_vio:
-                # Split mode: the VIO half reads the map as the LIO half
-                # left it (without this frame's insert when that is
-                # deferred).
-                self.packed, vdiag, n_it, self.pool = self._vio_half(
-                    self.packed, img_dev, pg, fid, self.vmap_state)
-            if defer_map:
-                # The insert queues after the pose-producing work; the
-                # next frame's match sees the updated map.
-                self.vmap_state = self._insert(self.vmap_state, pg)
+            if tr is not None and not first:
+                clock = tr.clock()
+            with clock or contextlib.nullcontext():
+                self.packed, self.vmap_state, diag, pg = self._frame_step(
+                    self.packed, self.vmap_state, imu_pack, pts_pack,
+                    first=first, do_map=not defer_map)
+                if use_vio:
+                    # Split mode: the VIO half reads the map as the LIO
+                    # half left it (without this frame's insert when that
+                    # is deferred).
+                    self.packed, vdiag, n_it, self.pool = self._vio_half(
+                        self.packed, img_dev, pg, fid, self.vmap_state)
+                if defer_map:
+                    # The insert queues after the pose-producing work; the
+                    # next frame's match sees the updated map.
+                    self.vmap_state = self._insert(self.vmap_state, pg)
         if n_it is not None:
             # a device int from the device loops, read at finalize
             self.photo_iterations = self.photo_iterations + n_it
@@ -934,6 +977,7 @@ class LIVOPipeline:
         # crossing sliding_thresh takes many frames), a pinned host copy
         # that has long landed when it is read: no host sync.
         if self.cfg.local_map.map_sliding_en and self.frame_id % 10 == 0:
+            t0 = time.perf_counter()
             snap = self._pos_snapshot
             self._pos_snapshot = host_copy(self.packed[9:12])
             if snap is not None:
@@ -945,10 +989,18 @@ class LIVOPipeline:
                     self.vmap_state = vmap_mod.slide_map(
                         self.vmap_state, self._put(pos),
                         self.cfg.local_map.half_map_size, self.map_cfg)
+            if tr is not None:
+                tr.host("map_slide", t0)
         # One-ahead packet prefetch: the next event's upload overlaps this
         # frame's device work.
+        t0 = time.perf_counter()
         self._prefetch_next()
+        if tr is not None:
+            tr.host("prefetch", t0)
+            t0 = time.perf_counter()
         self._ship_images()
+        if tr is not None:
+            tr.host("ship_images", t0)
         self._trim_imu()
         if self.cfg.evo.pose_output_en:
             self.trace_post.append((t_ev, keep(self.packed)))
@@ -958,15 +1010,22 @@ class LIVOPipeline:
         # Keep device tensors; converting here would sync every frame.
         self.trajectory.append((t_ev, keep(self.packed)))
         if is_kf:
+            t0 = time.perf_counter()
             self._add_keyframe(t_ev, pts_pack, pg, img_dev, diag)
+            if tr is not None:
+                tr.host("keyframe", t0)
         t_end = time.perf_counter()
-        row = dict(t=t_ev, t_wall=t_end, lio_s=t_end - t_frame0, vio_s=0.0,
-                   host_ms=(t_end - t_frame0) * 1e3, diag=diag)
+        row = dict(t=t_ev, host_ms=(t_end - t_frame0) * 1e3, diag=diag)
         if vdiag is not None:
             row["vdiag"] = vdiag  # merges into diag[2:5] at finalize
-        if stage_ms is not None:
-            row.update(stage_ms)
+        if clock is not None:
+            # the stage spans and their marks (a replay rewrites the
+            # graph's), timed at finalize
+            row["stage_spans"] = clock.spans
+            row["marks"] = clock.marks.clone()
         self.log.add(**row)
+        if tr is not None:
+            tr.spans.append((tr.row, "frame", None, t_frame0, t_end))
         if progress and self.frame_id % 10 == 0:
             print(f"[{self.slam_mode}] frame {self.frame_id} t={t_ev:.2f} "
                   f"pos={self.packed[9:12].cpu().numpy().round(3)}")
@@ -991,6 +1050,14 @@ class LIVOPipeline:
         vd_rows = [r for r in diag_rows if "vdiag" in r]
         host_vd = (torch.stack([r["vdiag"] for r in vd_rows]).cpu().numpy()
                    if vd_rows else None)
+        mark_rows = [r for r in self.log.rows if "marks" in r]
+        if mark_rows:
+            host_marks = torch.stack([r.pop("marks")
+                                      for r in mark_rows]).cpu().numpy()
+            for r, m in zip(mark_rows, host_marks):
+                cols, r["stage_spans"] = timing.stage_times(r["stage_spans"],
+                                                            m)
+                r.update(cols)
         for j, i in enumerate(new_idx):
             t = self.trajectory[i][0]
             self.trajectory[i] = (t, host[j, 0:9].reshape(3, 3), host[j, 9:12])
@@ -1061,7 +1128,7 @@ class LIVOPipeline:
         # host_ms contains the timed stages: summing both would count
         # the frame twice
         keys = (tuple(f"{n}_ms" for n in STAGES) if has_stages
-                else ("host_ms", "dev_wait_ms"))
+                else ("host_ms",))
         for r in self.log.rows:
             got = False
             for k in keys:

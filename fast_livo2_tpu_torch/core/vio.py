@@ -65,6 +65,7 @@ from ..models import camera as cam_mod
 from ..ops import image as img_ops
 from ..ops import photo_iteration as photo_mod
 from ..ops import so3, voxel_hash
+from ..utils.timing import annotate
 from .state import DIM_STATE, NavState, boxminus, boxplus, select
 from .voxel_map import (VoxelMap, VoxelMapConfig, _const, quad6, query_plane,
                         sym6)
@@ -1139,42 +1140,51 @@ def vio_step(state_prop: NavState, cov_prop, pool: VisualPool, ring: FrameRing,
     appended to the scan's rows -> new-point generation + observation
     update + reference refinement. pg_var: (N, 3, 3) or (N, 6) sym6;
     frame_id a 0-d int32 tensor. The pool and ring are updated in place.
-    `device_loop`: the photometric update's host-read-free form."""
+    `device_loop`: the photometric update's host-read-free form. Its
+    sub-stages run in `annotate` ranges (vio.ring_insert, vio.raster,
+    vio.retrieve, vio.photometric, vio.maintain: the raycast and the
+    upkeep), which tile it."""
     pg_var6 = pg_var if pg_var.dim() == 2 else sym6(pg_var)
-    pool, ring, frame_slot = ring_insert(pool, ring, img, frame_id, cfg)
+    with annotate("vio.ring_insert"):
+        pool, ring, frame_slot = ring_insert(pool, ring, img, frame_id, cfg)
 
-    Rcw0, Pcw0 = camera_pose(state_prop, Rci, Pci)
-    depth_img = rasterize_depth(cam, Rcw0, Pcw0, pg_w, pg_valid, border_px(cfg))
+    with annotate("vio.raster"):
+        Rcw0, Pcw0 = camera_pose(state_prop, Rci, Pci)
+        depth_img = rasterize_depth(cam, Rcw0, Pcw0, pg_w, pg_valid,
+                                    border_px(cfg))
 
-    submap, pool = retrieve(pool, ring, img, depth_img, state_prop, cam, Rci,
-                            Pci, cfg)
-    n_tracked = torch.sum(submap.valid.to(torch.int32))
-    if cfg.inverse_composition_en:
-        state, cov, mean_err, iters = photometric_update_ic(
-            state_prop, cov_prop, submap, img, ring, cam, Rci, Pci, cfg,
-            device_loop=device_loop)
-    else:
-        state, cov, mean_err, iters = photometric_update(
-            state_prop, cov_prop, submap, img, cam, Rci, Pci, cfg,
-            device_loop=device_loop)
+    with annotate("vio.retrieve"):
+        submap, pool = retrieve(pool, ring, img, depth_img, state_prop, cam,
+                                Rci, Pci, cfg)
+        n_tracked = torch.sum(submap.valid.to(torch.int32))
+    with annotate("vio.photometric"):
+        if cfg.inverse_composition_en:
+            state, cov, mean_err, iters = photometric_update_ic(
+                state_prop, cov_prop, submap, img, ring, cam, Rci, Pci, cfg,
+                device_loop=device_loop)
+        else:
+            state, cov, mean_err, iters = photometric_update(
+                state_prop, cov_prop, submap, img, cam, Rci, Pci, cfg,
+                device_loop=device_loop)
 
-    if cfg.raycast_en and ray_table is not None:
-        ray_samples, border_cell = ray_table
-        scan_tab, _ = voxel_hash.lookup_or_insert(
-            voxel_hash.make_table(RAY_SCAN_SLOTS, pg_w.device),
-            voxel_hash.voxel_key(pg_w, map_cfg.voxel_size), pg_valid)
-        rc_pos, rc_nrm, rc_ok = raycast_recover(
-            vmap_state, map_cfg, ~submap.valid, border_cell, ray_samples,
-            scan_tab, state, Rci, Pci)
-        rc_var6 = _const(RAY_VAR6, pg_var6.dtype, str(pg_var6.device))
-        pg_w = torch.cat([pg_w, rc_pos])
-        pg_normal = torch.cat([pg_normal, rc_nrm])
-        pg_var6 = torch.cat([pg_var6, rc_var6.expand(rc_pos.shape[0], 6)])
-        pg_valid = torch.cat([pg_valid, rc_ok])
+    with annotate("vio.maintain"):
+        if cfg.raycast_en and ray_table is not None:
+            ray_samples, border_cell = ray_table
+            scan_tab, _ = voxel_hash.lookup_or_insert(
+                voxel_hash.make_table(RAY_SCAN_SLOTS, pg_w.device),
+                voxel_hash.voxel_key(pg_w, map_cfg.voxel_size), pg_valid)
+            rc_pos, rc_nrm, rc_ok = raycast_recover(
+                vmap_state, map_cfg, ~submap.valid, border_cell, ray_samples,
+                scan_tab, state, Rci, Pci)
+            rc_var6 = _const(RAY_VAR6, pg_var6.dtype, str(pg_var6.device))
+            pg_w = torch.cat([pg_w, rc_pos])
+            pg_normal = torch.cat([pg_normal, rc_nrm])
+            pg_var6 = torch.cat([pg_var6, rc_var6.expand(rc_pos.shape[0], 6)])
+            pg_valid = torch.cat([pg_valid, rc_ok])
 
-    pool, _, n_added = generate_and_maintain(
-        pool, vmap_state, map_cfg, submap, img, pg_w, pg_normal, pg_var6,
-        pg_valid, state, cam, Rci, Pci, frame_id, frame_slot, cfg)
+        pool, _, n_added = generate_and_maintain(
+            pool, vmap_state, map_cfg, submap, img, pg_w, pg_normal, pg_var6,
+            pg_valid, state, cam, Rci, Pci, frame_id, frame_slot, cfg)
     return VIOStepResult(state=state, cov=cov, pool=pool, ring=ring,
                          n_tracked=n_tracked, n_added=n_added,
                          mean_error=mean_err, photo_iterations=iters)

@@ -24,6 +24,8 @@ capturable) and launches the hand-written kernel `csrc/ordered_add.cu`
 (one thread per sorted lane and column; the thread that starts a run
 walks it in order; the source says what bounds it), or raises: there is
 no fallback; the call takes the shared launch path of ops/_launch.py.
+The sort and the launch run in one `annotate("ordered_add")` range, so
+a traced frame times the call, its sort included, as a stage span.
 On CPU tensors it runs `ordered_index_add_plain`, which is
 `base.index_add_(0, dst, src)`: the CPU sums lane by lane in index
 order. `LAUNCHES` counts calls that launched the kernel, never
@@ -38,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.timing import annotate
 from . import _launch
 
 LAUNCHES = 0
@@ -99,17 +102,18 @@ def ordered_index_add_(base: torch.Tensor, dst: torch.Tensor,
     n = dst.shape[0]
     if n == 0:
         return base
-    if dst_sorted:
-        keys, perm = dst, None
-    else:
-        keys, perm = torch.sort(dst, stable=True)
-    err = (_fn or _kernel())(base.data_ptr(), keys.data_ptr(),
-                             None if perm is None else perm.data_ptr(),
-                             src.data_ptr(), n, base.shape[1],
-                             -1 if drop is None else drop, dev,
-                             _launch.raw_stream(dev))
-    if err:
-        _launch.fail("ordered_index_add_", err)
-    global LAUNCHES
-    LAUNCHES += 1
+    with annotate("ordered_add"):
+        if dst_sorted:
+            keys, perm = dst, None
+        else:
+            keys, perm = torch.sort(dst, stable=True)
+        err = (_fn or _kernel())(base.data_ptr(), keys.data_ptr(),
+                                 None if perm is None else perm.data_ptr(),
+                                 src.data_ptr(), n, base.shape[1],
+                                 -1 if drop is None else drop, dev,
+                                 _launch.raw_stream(dev))
+        if err:
+            _launch.fail("ordered_index_add_", err)
+        global LAUNCHES
+        LAUNCHES += 1
     return base

@@ -97,10 +97,13 @@ def test_fused_camera_less_modes_equal_split(seq, mode, tpu):
 
 
 def test_stage_clock_laps():
-    clock = timing.StageClock(torch.device("cpu"))
-    for name in timing.STAGES[:3]:
-        clock.lap(name)
-    ms = clock.read()
+    """Stages run in `annotate` ranges inside an active clock, one after
+    another, read back in order."""
+    with timing.StageClock(torch.device("cpu")) as clock:
+        for name in timing.STAGES[:3]:
+            with timing.annotate(name):
+                pass
+    ms = timing.stage_times(clock.spans, clock.marks.numpy())[0]
     assert list(ms) == [f"{n}_ms" for n in timing.STAGES[:3]]
     assert all(v >= 0.0 for v in ms.values())
 
