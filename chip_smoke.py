@@ -34,6 +34,13 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     tracked slots (640 x 512 M 396, 752 x 480 M 486 in
                     the above-448 sampling, 612 x 512 M 378), each
                     timed and bounded;
+  4a. kernel_tail   the photometric filter tail (ops/photo_tail, which
+                    ports no TPU kernel) against its plain version at
+                    avia's and hilti22's shapes (n = 7) and at n = 6, in
+                    both loop forms, each held to a float64 evaluation
+                    no worse than four times the plain float32 tail;
+                    bitwise the same over 20 calls; one device kernel a
+                    call; timed beside the plain tail;
   4b. side_stream   the three wrappers once on a side stream
                     (torch.cuda.stream(s)) against their plain versions,
                     and the raw stream the launch path reads equal to
@@ -309,6 +316,7 @@ ORDERED_ADD_SHAPES = {"map_insert": (3 * (1 << 18) + 1, 16, 3 * 8192),
                       "tsdf": (256 ** 3 + 1, 1, 8192 * 7)}
 K2_SWEEP = (0, 1, 7, 9, M_MAIN, 4096)  # a block holds 8 points
 K2_REPEATS = 20
+TAIL_REPEATS = 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -707,6 +715,151 @@ def k2_rig_shapes():
     return out
 
 
+def tail_inputs(name, n, seed=0):
+    """Float64 inputs of one photometric filter-tail call at rig `name`'s
+    shape: HTH = J^T J and HTz = J^T r over its tracked slots (the grid's
+    cells) x 64 pixels, J's columns at image-gradient scale (the exposure
+    column at intensity scale, n = 7) and r at a few DN; P_scaled_inv =
+    inv(cov / img_point_cov) of the filter's initial covariance (0.01 on
+    rotation, position and velocity, 1e-5 on exposure, biases and
+    gravity) with small correlations; state_prop 0.01 rad and 2 cm from
+    the state. Returns ((carry, flags, P, HTH, HTz, error) float64 on
+    the CPU, M)."""
+    from fast_livo2_tpu_torch.core import state as st_mod
+    from fast_livo2_tpu_torch.core import vio as vio_mod
+    from fast_livo2_tpu_torch.models import camera
+    from fast_livo2_tpu_torch.ops import photo_tail, so3
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    cfg = load_config(*rig_paths(name))
+    _, gw, gh = vio_mod.derive_grid(camera.make_camera(cfg.camera),
+                                    cfg.vio.grid_size, cfg.vio.grid_n_height)
+    M = gw * gh
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+    J = rng.normal(size=(M * 64, n)) * np.array([40.0] * 6 + [120.0])[:n]
+    r = rng.normal(size=M * 64) * 4.0
+    HTH = torch.tensor(J.T @ J, dtype=f64)
+    HTz = torch.tensor(J.T @ r, dtype=f64)
+    cov = st_mod.init_cov("cpu", f64).numpy()
+    L = rng.normal(size=(19, 19)) * 1e-4
+    cov = cov + L @ L.T
+    P = torch.tensor(np.linalg.inv(cov / cfg.vio.img_point_cov), dtype=f64)
+    s = st_mod.init_state("cpu", f64)
+    s = s._replace(rot=so3.exp(torch.tensor([0.1, -0.2, 0.3], dtype=f64)),
+                   pos=torch.tensor([1.0, 2.0, 0.5], dtype=f64),
+                   grav=torch.tensor([0.0, 0.0, -9.81], dtype=f64))
+    sp = s._replace(rot=s.rot @ so3.exp(torch.tensor([0.006, 0.0, -0.008],
+                                                     dtype=f64)),
+                    pos=s.pos + 0.02)
+    carry, flags = photo_tail.start_level(sp, s, torch.zeros((19, 19), dtype=f64),
+                                          torch.zeros((), dtype=f64))
+    carry[photo_tail.LAST_ERR] = 50.0
+    return (carry, flags, P, HTH, HTz, torch.tensor(40.0, dtype=f64)), M
+
+
+def check_tail(args64, device_loop, what):
+    """The kernel against the plain tail on the card, as
+    tests/test_torch_cuda.py::test_photo_tail_kernel_matches_plain holds
+    it: the flags exactly; in each block of the carry the kernel's
+    largest error against a float64 evaluation at most four times the
+    plain float32 tail's largest (on these inputs and on three copies
+    moved by one ulp) plus 2^-20 of the block's largest entry; one launch.
+    Returns the kernel's largest error over the plain's largest."""
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    def on_card(a):
+        return [t.to(device="cuda", dtype=torch.float32 if t.is_floating_point()
+                     else t.dtype) for t in a]
+
+    ref = [t.clone() for t in args64]
+    photo_tail.photo_tail_plain(*ref, device_loop)
+    plains = []
+    for k in range(4):
+        a = [t.clone() for t in args64]
+        if k:
+            rng = np.random.default_rng(k)
+            for i, hi in ((0, photo_tail.G_KEEP), (2, None), (3, None), (4, None)):
+                x = a[i].reshape(-1)[:hi]
+                x.mul_(1.0 + torch.from_numpy(rng.choice([-1.0, 1.0], size=x.shape))
+                       * 2.0 ** -23)
+        a = on_card(a)
+        photo_tail.photo_tail_plain(*a, device_loop)
+        plains.append(a)
+    got = on_card(args64)
+    before = photo_tail.LAUNCHES
+    photo_tail.photo_tail(*got, device_loop)
+    torch.cuda.synchronize()
+    check(photo_tail.LAUNCHES == before + 1, f"tail {what}: no launch counted")
+    check(all(torch.equal(got[1], p[1]) for p in plains),
+          f"tail {what}: flags {got[1].tolist()} vs plain {plains[0][1].tolist()}")
+    worst = 0.0
+    for lo, hi in ((photo_tail.STATE, photo_tail.OLD),
+                   (photo_tail.OLD, photo_tail.G_KEEP),
+                   (photo_tail.G_KEEP, photo_tail.FINAL_ERR),
+                   (photo_tail.FINAL_ERR, photo_tail.CARRY_W)):
+        want = ref[0][lo:hi]
+        e_k = float((got[0][lo:hi].cpu().double() - want).abs().max())
+        e_p = max(float((p[0][lo:hi].cpu().double() - want).abs().max())
+                  for p in plains)
+        check(e_k <= 4 * e_p + 2.0 ** -20 * float(want.abs().max()),
+              f"tail {what}: carry[{lo}:{hi}] error {e_k} vs plain {e_p}")
+        if e_p:
+            worst = max(worst, e_k / e_p)
+    return worst
+
+
+def phase_kernel_tail():
+    """The photometric filter tail (ops/photo_tail, no TPU kernel's port)
+    against its plain version at avia's and hilti22's shapes (n = 7, the
+    forward update both cells run) and at n = 6 (the inverse-compositional
+    update), in both loop forms; bitwise the same over 20 calls; one
+    device kernel a call; timed beside the plain tail at avia's shape."""
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    ratios, shapes = {}, {}
+    for name in ("avia", "hilti22"):
+        for n in (7, 6):
+            args64, M = tail_inputs(name, n)
+            shapes[name] = M
+            for device_loop in (True, False):
+                ratios[f"{name}_n{n}_{'device_loop' if device_loop else 'split'}"] = (
+                    check_tail(args64, device_loop, f"{name} n={n}"))
+    args64, _ = tail_inputs("avia", 7)
+    args = [t.to(device="cuda", dtype=torch.float32 if t.is_floating_point()
+                 else t.dtype) for t in args64]
+    first = [t.clone() for t in args]
+    photo_tail.photo_tail(*first, True)
+    for k in range(TAIL_REPEATS):
+        a = [t.clone() for t in args]
+        photo_tail.photo_tail(*a, True)
+        check(torch.equal(a[0].view(torch.int32), first[0].view(torch.int32))
+              and torch.equal(a[1], first[1]),
+              f"tail not bitwise repeatable at call {k + 1}")
+    t = one_kernel_timings(lambda: photo_tail.photo_tail(*args, True),
+                           "photo_tail_kernel", "tail")
+    plain_ms = time_cuda(lambda: photo_tail.photo_tail_plain(*args, True), calls=20)
+    # Least time for the same work: carry and flags read and written,
+    # P (19 x 19), HTH (7 x 7), HTz and the error read once; the solve's
+    # Gauss-Jordan FMAs (19 rows x the 25 - k live columns at step k),
+    # G, K HTz and G vec, at 2 FLOP an FMA.
+    nbytes = (2 * (photo_tail.CARRY_W + photo_tail.FLAGS_W) + 19 * 19 + 49
+              + 7 + 1) * 4
+    flops = 2 * (19 * sum(25 - k for k in range(19)) + 19 * 7 * 7 + 2 * 19 * 7)
+    bound_ms, bound_by = bound(nbytes, flops)
+    row = {"name": "photo_tail.photo_tail", "route": "cuda",
+           "source": "fast_livo2_tpu_torch/csrc/photo_tail.cu",
+           "replaces": None, "ms": t["ms"], "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           # No single PyTorch call computes the solve, boxminus, boxplus
+           # and the accept rule.
+           "library_ms": None, "device_ms": t["device_ms"],
+           "host_us": t["host_us"]}
+    emit({"phase": "kernel_tail", "M": shapes, "bytes": nbytes, "flops": flops,
+          "error_over_plain": ratios, "bitwise_repeats": TAIL_REPEATS, **t, **row})
+    return row
+
+
 def phase_side_stream(img):
     """Each wrapper launched once inside torch.cuda.stream(side), held
     against its plain version; the raw stream the launch path reads
@@ -825,17 +978,20 @@ def drive(pipe, after=None):
 def reset_launches():
     from fast_livo2_tpu_torch.ops import cov_scan, gather, ordered_add
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
+    from fast_livo2_tpu_torch.ops import photo_tail
 
     cov_scan.LAUNCHES = photo.LAUNCHES = gather.LAUNCHES = 0
-    ordered_add.LAUNCHES = 0
+    ordered_add.LAUNCHES = photo_tail.LAUNCHES = 0
 
 
 def read_launches():
     from fast_livo2_tpu_torch.ops import cov_scan, gather, ordered_add
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
+    from fast_livo2_tpu_torch.ops import photo_tail
 
     return {"cov_scan": cov_scan.LAUNCHES, "photo_iteration": photo.LAUNCHES,
-            "gather_rows": gather.LAUNCHES, "ordered_add": ordered_add.LAUNCHES}
+            "gather_rows": gather.LAUNCHES, "ordered_add": ordered_add.LAUNCHES,
+            "photo_tail": photo_tail.LAUNCHES}
 
 
 def ordered_add_sites(pipe):
@@ -973,6 +1129,9 @@ def phase_pipeline(seq, mode):
         check(launches["photo_iteration"] == pipe.photo_iterations > 0,
               f"photo_iteration launched {launches['photo_iteration']} times "
               f"for {pipe.photo_iterations} photometric iterations")
+        check(launches["photo_tail"] == pipe.photo_iterations,
+              f"photo_tail launched {launches['photo_tail']} times for "
+              f"{pipe.photo_iterations} photometric iterations")
         max_iters = cfg.vio.patch_pyrimid_level * cfg.vio.max_iterations
         check(pipe.photo_iterations <= max_iters * vio_frames,
               f"{pipe.photo_iterations} photometric iterations in "
@@ -3975,6 +4134,7 @@ def main(argv):
         emit({"phase": "sequence", "scans": len(seq.scans),
               "images": len(seq.images), "seconds": time.perf_counter() - t0})
         k2, frame = phase_kernel_photo(seq)
+        k5 = phase_kernel_tail()
         phase_side_stream(frame)
         # (after the kernel phases: a busy host makes the profiler drop
         # kernel events, and those phases count them)
@@ -4044,11 +4204,15 @@ def main(argv):
     k4["launches"] = launches["ordered_add"]
     k4["launches_fused"] = fused["livo"]["ordered_add"]
     k4["phase_launches"] = k4_phase_launches
+    # the filter tail: once a photometric iteration on both paths
+    k5["launches"] = launches["photo_tail"]
+    k5["launches_fused"] = fused["livo"]["photo_tail"]
     # the launches of each of this slice's phases (their fused runs)
     for k, name in ((k1, "cov_scan"), (k2, "photo_iteration"),
-                    (k3, "gather_rows"), (k4, "ordered_add")):
+                    (k3, "gather_rows"), (k4, "ordered_add"),
+                    (k5, "photo_tail")):
         k["launches_phases"] = {ph: n[name] for ph, n in phases.items()}
-    emit({"kernels": [k1, k2, k3, k4]})
+    emit({"kernels": [k1, k2, k3, k4, k5]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

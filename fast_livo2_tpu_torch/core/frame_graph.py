@@ -7,9 +7,10 @@ with use_vio=True in place of the LIO and VIO halves, "one jit per frame
 PyTorch counterpart is a `torch.cuda.CUDAGraph` of the pipeline's
 `_fused_frame` (propagate through K1, undistort, downsample, the LIO
 device loop, on VIO frames ring insert, depth raster, retrieval, the
-photometric device loop through K2 and maintenance, then the map
-insert), captured once per frame shape and replayed once a frame: the
-frame's thousands of kernel launches become one graph launch.
+photometric device loop through K2 and the filter-tail kernel,
+maintenance, then the map insert), captured once per frame shape and
+replayed once a frame: the frame's thousands of kernel launches become
+one graph launch.
 
 The map insert is in the same graph. The JAX package keeps the
 deferred insert as a tail program so that blocking on the pose does not
@@ -57,10 +58,11 @@ What a graph needs, and how this module provides it:
   pipeline, so a LIVO run captures one graph (a LIVO frame without an
   image would be a second). `summary()` reports the graphs, their capture seconds and the
   memory their pools reserved.
-- Library calls. torch.linalg.inv_ex (the 19x19 inverses of both
-  filters) runs cuSOLVER's getrf and cuBLAS's batched triangular solves
-  on the H100; both capture and neither waits for the host, so the
-  filters keep it.
+- Library calls. torch.linalg.inv_ex (the 19x19 inverses of the LIO
+  filter and the photometric update's P_scaled_inv, once a VIO frame)
+  runs cuSOLVER's getrf and cuBLAS's batched triangular solves on the
+  H100; both capture and neither waits for the host, so those keep it.
+  The photometric iterations solve in ops/photo_tail's kernel.
 - Launch counts. The kernel wrappers count their launches; a capture
   launches nothing, so the counts the wrappers added during capture are
   taken back and added again at each replay, which launches them.
@@ -84,15 +86,15 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from ..ops import cov_scan, ordered_add
+from ..ops import cov_scan, ordered_add, photo_tail
 from ..ops import photo_iteration as photo_mod
 from . import imu as imu_mod
 from . import vio as vio_mod
 from . import voxel_map as vmap_mod
 
 # the kernel wrappers whose launches a replay repeats
-_COUNTED = (cov_scan, photo_mod, ordered_add)
-_NAMES = ("cov_scan", "photo_iteration", "ordered_add")
+_COUNTED = (cov_scan, photo_mod, ordered_add, photo_tail)
+_NAMES = ("cov_scan", "photo_iteration", "ordered_add", "photo_tail")
 # the pipeline's state attributes a frame reads or writes, with their
 # types (None: one tensor); the pool and ring exist in LIVO mode only
 _STATE = (("packed", None), ("vmap_state", vmap_mod.VoxelMap),
@@ -250,7 +252,8 @@ class FrameGraphs:
 
     def summary(self) -> dict:
         """The captures of this pipeline: count, seconds and reserved bytes
-        each, the launches of K1, K2 and ordered_add a replay makes, and
+        each, the launches of K1, K2, ordered_add and photo_tail a replay
+        makes, and
         the bytes a frame copies back into the static state; for graphs
         captured with tracing on, their kernel nodes and those launches by
         stage path (None otherwise) and the stage marks a replay makes."""

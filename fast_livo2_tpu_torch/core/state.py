@@ -22,7 +22,8 @@ from ..ops import so3
 DIM_STATE = 19
 GRAVITY = 9.81  # common_lib.h:29
 INIT_COV = 0.01  # common_lib.h:31
-PACKED_LEN = 25 + DIM_STATE * DIM_STATE
+NAV_LEN = 25  # a NavState packed: rot(9) pos vel bias_g bias_a grav inv_expo
+PACKED_LEN = NAV_LEN + DIM_STATE * DIM_STATE
 
 
 class NavState(NamedTuple):
@@ -91,19 +92,26 @@ def select(c: torch.Tensor, a, b):
     return type(a)(*(torch.where(c, x, y) for x, y in zip(a, b)))
 
 
-def pack_state(s: NavState, cov: torch.Tensor) -> torch.Tensor:
-    """State + covariance as ONE (PACKED_LEN,) vector — the JAX
-    package's layout: rot(9) pos vel bias_g bias_a grav inv_expo cov."""
-    return torch.cat([
-        s.rot.reshape(9), s.pos, s.vel, s.bias_g, s.bias_a, s.grav,
-        s.inv_expo.reshape(1), cov.reshape(DIM_STATE * DIM_STATE),
-    ])
+def nav_parts(s: NavState):
+    """The fields of `s` as the pieces of its packed form (NAV_LEN floats:
+    rot(9) pos vel bias_g bias_a grav inv_expo), for torch.cat."""
+    return [s.rot.reshape(9), s.pos, s.vel, s.bias_g, s.bias_a, s.grav,
+            s.inv_expo.reshape(1)]
 
 
-def unpack_state(v: torch.Tensor):
-    s = NavState(
+def nav_view(v: torch.Tensor) -> NavState:
+    """The NavState packed at the start of `v`, as views into it."""
+    return NavState(
         rot=v[0:9].reshape(3, 3), pos=v[9:12], vel=v[12:15],
         bias_g=v[15:18], bias_a=v[18:21], grav=v[21:24], inv_expo=v[24],
     )
-    cov = v[25:PACKED_LEN].reshape(DIM_STATE, DIM_STATE)
-    return s, cov
+
+
+def pack_state(s: NavState, cov: torch.Tensor) -> torch.Tensor:
+    """State + covariance as ONE (PACKED_LEN,) vector — the JAX
+    package's layout: rot(9) pos vel bias_g bias_a grav inv_expo cov."""
+    return torch.cat([*nav_parts(s), cov.reshape(DIM_STATE * DIM_STATE)])
+
+
+def unpack_state(v: torch.Tensor):
+    return nav_view(v), v[NAV_LEN:PACKED_LEN].reshape(DIM_STATE, DIM_STATE)

@@ -64,9 +64,10 @@ import torch
 from ..models import camera as cam_mod
 from ..ops import image as img_ops
 from ..ops import photo_iteration as photo_mod
+from ..ops import photo_tail as tail_mod
 from ..ops import so3, voxel_hash
 from ..utils.timing import annotate
-from .state import DIM_STATE, NavState, boxminus, boxplus, select
+from .state import DIM_STATE, NavState
 from .voxel_map import (VoxelMap, VoxelMapConfig, _const, quad6, query_plane,
                         sym6)
 
@@ -528,7 +529,8 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
     iterations that took effect, a host int, or with `device_loop` (all
     pyramid_levels x max_iterations iterations run, masked, with no host
     read) a 0-d int32 device tensor. One ops/photo_iteration call an
-    iteration run where the fused path is taken."""
+    iteration run where the fused path is taken, and one ops/photo_tail
+    call an iteration run in every path."""
     f32 = cov_prop.dtype
     dev = cov_prop.device
     ps = cfg.patch_size
@@ -621,55 +623,30 @@ def _iterate_level(state_prop: NavState, state: NavState, G_keep, final_err,
     """One pyramid level of the iterated photometric ESIKF (updateState's
     loop, vio.cpp:1558-1688), shared by the forward and the inverse-
     compositional updates. normal_equations(state) -> (HTH (n, n), HTz
-    (n,), error) over the first n state columns. Returns (state, G_keep,
-    final_err, iterations that took effect: an int, or a 0-d int32
-    tensor in the device loop)."""
-    f32, dev = P_scaled_inv.dtype, P_scaled_inv.device
-    old_state = state
-    last_error = torch.full((), _BIG, dtype=f32, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)  # device loop
+    (n,), error) over the first n state columns. Each iteration's filter
+    tail (the solve, boxminus / boxplus, the accept rule) is one
+    ops/photo_tail call, one kernel on the card, on the level's carried
+    buffers; the state normal_equations reads is a view into them.
+    Returns (state, G_keep, final_err, iterations that took effect: an
+    int, or a 0-d int32 tensor in the device loop)."""
+    carry, flags = tail_mod.start_level(state_prop, state, G_keep, final_err)
+    state = tail_mod.nav_view(carry, tail_mod.STATE)
     iterations = 0
     for it in range(max_iterations):
         HTHn, HTzn, error = normal_equations(state)
-        n = HTHn.shape[0]
-        HTH = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
-        HTH[0:n, 0:n] = HTHn
-        K_1 = torch.linalg.inv_ex(HTH + P_scaled_inv).inverse
-        G = torch.zeros((DIM_STATE, DIM_STATE), dtype=f32, device=dev)
-        G[:, 0:n] = K_1[:, 0:n] @ HTHn
-        vec = boxminus(state_prop, state)
-        sol = -K_1[:, 0:n] @ HTzn + vec - G[:, 0:n] @ vec[0:n]
-
-        # Accept/rollback (:1648-1681): on improvement keep the pre-update
-        # state and apply the solution; otherwise revert to the saved
-        # state and stop. In the device loop an iteration after the stop
-        # changes nothing.
-        accept = error <= last_error
-        new_state = boxplus(state, sol)
+        tail_mod.photo_tail(carry, flags, P_scaled_inv, HTHn, HTzn, error,
+                            device_loop)
         if device_loop:
-            active = ~stop
-            back = select(active, old_state, state)
-            accept = active & accept
-        else:
-            back = old_state
-        old_state, state = (select(accept, state, old_state),
-                            select(accept, new_state, back))
-        rot_add = torch.linalg.norm(sol[0:3])
-        t_add = torch.linalg.norm(sol[3:6])
-        converged = (rot_add * 57.3 < 0.001) & (t_add * 100.0 < 0.001)
-        G_keep = torch.where(accept, G, G_keep)
-        final_err = torch.where(accept, error, final_err)
-        last_error = torch.where(accept, error, last_error)
-        if device_loop:
-            iterations = iterations + active.to(torch.int32)
-            stop = stop | ~accept | converged
             continue
         iterations += 1
-        # The loop condition of the JAX while_loop, read on the host;
-        # after the last iteration the count alone ends the level.
-        if it + 1 < max_iterations and bool(~accept | converged):
+        # The loop condition of the JAX while_loop (~accept | converged),
+        # read on the host; after the last iteration the count alone ends
+        # the level.
+        if it + 1 < max_iterations and bool(flags[tail_mod.DONE]):
             break
-    return state, G_keep, final_err, iterations
+    state, G_keep, final_err = tail_mod.level_result(carry)
+    return (state, G_keep, final_err,
+            flags[tail_mod.ITERS] if device_loop else iterations)
 
 
 def photometric_update_ic(state_prop: NavState, cov_prop, submap: Submap,

@@ -7,6 +7,7 @@ a card and no JAX it runs without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import math
 import os
 
 import numpy as np
@@ -379,11 +380,213 @@ def test_photo_iteration_wrapper_rejects_bad_input():
     assert photo.LAUNCHES == before
 
 
+def _tail_case(n, axis, angle, hz, cond=1e2, seed=0):
+    """Float64 inputs of one filter-tail call: state_prop = state rotated
+    by `angle` about `axis` (near identity and near pi reach so3.log's
+    series and axis branches), P_scaled_inv = inv(cov / 100) of an SPD
+    covariance whose eigenvalues spread over `cond`, HTH = J^T J of 64
+    rows, HTz = hz * HTH e + noise (hz = 0: HTz = 0)."""
+    from fast_livo2_tpu_torch.core.state import NavState, boxminus
+    from fast_livo2_tpu_torch.ops import photo_tail, so3
+
+    rng = np.random.default_rng(seed)
+    f64 = torch.float64
+
+    def rot(ax, ang):
+        ax = np.asarray(ax, np.float64)
+        return so3.exp(torch.tensor(ax / np.linalg.norm(ax) * ang, dtype=f64))
+
+    r = lambda k, s: torch.tensor(rng.normal(size=k) * s, dtype=f64)
+    st = NavState(rot=rot(rng.normal(size=3), 0.7), pos=r(3, 0.3),
+                  vel=r(3, 0.3), bias_g=r(3, 0.003), bias_a=r(3, 0.03),
+                  grav=r(3, 0.1) + torch.tensor([0.0, 0.0, -9.81], dtype=f64),
+                  inv_expo=torch.tensor(1.02, dtype=f64))
+    sp = st._replace(rot=st.rot @ rot(axis, angle)) if angle else st
+    Q, _ = np.linalg.qr(rng.normal(size=(19, 19)))
+    cov = (Q * np.geomspace(1e-2, 1e-2 / cond, 19)) @ Q.T
+    P = torch.tensor(np.linalg.inv((cov + cov.T) / 200.0), dtype=f64)
+    J = rng.normal(size=(64, n)) * 30.0
+    HTH = torch.tensor(J.T @ J, dtype=f64)
+    e = boxminus(sp, st)[0:n]
+    HTz = (HTH @ e) * hz + r(n, hz)
+    carry, flags = photo_tail.start_level(sp, st, torch.zeros((19, 19), dtype=f64),
+                                          torch.zeros((), dtype=f64))
+    return carry, flags, P, HTH, HTz
+
+
+# Filter-tail cases: (n, rotation axis and angle of state_prop against
+# state, HTz scale, condition of the covariance, error, last_error, stop
+# already set). 5 < 9: accepted; 9 > 5: rejected; a NaN error is
+# rejected.
+TAIL_CASES = {
+    "accept": (7, [0.3, -0.5, 0.8], 0.02, 1.0, 1e2, 5.0, 9.0, 0),
+    "reject": (7, [1, 2, 3], 0.1, 1.0, 1e2, 9.0, 5.0, 0),
+    "stopped": (7, [1, 2, 3], 0.1, 1.0, 1e2, 5.0, 9.0, 1),
+    "converged": (7, [1, 0, 0], 0.0, 0.0, 1e2, 5.0, 9.0, 0),
+    "near_identity": (6, [0.2, 0.1, -1.0], 3e-5, 1.0, 1e2, 5.0, 9.0, 0),
+    "near_pi": (6, [0.6, -0.3, 0.74], math.pi - 2e-4, 1.0, 1e2, 5.0, 9.0, 0),
+    "ill_conditioned": (7, [0, 1, 1], 0.5, 1.0, 1e6, 5.0, 9.0, 0),
+    "ill_conditioned_n6": (6, [1, 1, 0], 0.3, 1.0, 1e6, 5.0, 9.0, 0),
+    "nan_error": (7, [1, 2, 3], 0.1, 1.0, 1e2, float("nan"), 9.0, 0),
+}
+
+
+def _tail_inputs(name, device_loop):
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    n, axis, angle, hz, cond, error, last, stop = TAIL_CASES[name]
+    carry, flags, P, HTH, HTz = _tail_case(n, axis, angle, hz, cond)
+    carry[photo_tail.LAST_ERR] = last
+    flags[photo_tail.STOP] = stop if device_loop else 0
+    return carry, flags, P, HTH, HTz, torch.tensor(error, dtype=torch.float64)
+
+
+def _on(args, device, dtype):
+    return [a.to(device=device, dtype=dtype if a.is_floating_point() else a.dtype)
+            for a in args]
+
+
+def _perturbed(args64, seed):
+    """The inputs with every state, P, HTH and HTz entry moved by about
+    one float32 ulp (x (1 +- 2^-23)); the error, last_error and flags,
+    which decide the accept rule, kept."""
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    rng = np.random.default_rng(seed)
+    out = [a.clone() for a in args64]
+    for i, lo, hi in ((0, 0, photo_tail.G_KEEP), (2, 0, None), (3, 0, None),
+                      (4, 0, None)):
+        x = out[i].reshape(-1)[lo:hi]
+        s = torch.from_numpy(rng.choice([-1.0, 1.0], size=x.shape))
+        x.mul_(1.0 + s * 2.0 ** -23)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_loop", [True, False])
+@pytest.mark.parametrize("name", list(TAIL_CASES))
+def test_photo_tail_kernel_matches_plain(name, device_loop):
+    """The kernel against the plain tail (ops/photo_tail.photo_tail_plain:
+    inv_ex, boxminus / boxplus, the selects) on the card, at n = 7 and
+    n = 6, in both loop forms, through accept, reject, an already-set
+    stop, convergence, rotations near identity and near pi and an
+    ill-conditioned SPD system. The flags (stop, iterations, done) are
+    held exactly, and where the accept rule only copies, every value.
+    The computed values (state', G_keep) are held to a float64
+    evaluation of the same tail: in each block the kernel's largest
+    error may not exceed four times the largest error of the plain
+    float32 tail on these inputs and on three copies of them moved by one
+    ulp, plus 2^-20 of the block's largest entry. Both are float32 and
+    differ in the solve (Gauss-Jordan against cuSOLVER's LU and inverse)
+    and in summation order, so neither is the other's reference; the
+    ulp-moved copies measure how far rounding alone moves this case
+    (near pi the float32 acos resolves the angle only to ~1e-4 rad)."""
+    _need_card()
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    args64 = _tail_inputs(name, device_loop)
+    ref = [a.clone() for a in args64]
+    photo_tail.photo_tail_plain(*ref, device_loop)
+    plains = []
+    for k in range(4):
+        a = _on(_perturbed(args64, k) if k else args64, "cuda", torch.float32)
+        photo_tail.photo_tail_plain(*a, device_loop)
+        plains.append(a)
+    got = _on(args64, "cuda", torch.float32)
+    before = photo_tail.LAUNCHES
+    photo_tail.photo_tail(*got, device_loop)
+    torch.cuda.synchronize()
+    assert photo_tail.LAUNCHES == before + 1
+    for p in plains:
+        assert torch.equal(got[1], p[1]), (got[1], p[1])
+    rejected = name in ("reject", "nan_error") or (name == "stopped"
+                                                   and device_loop)
+    if rejected:
+        assert torch.equal(got[0], plains[0][0])  # copies only
+        assert torch.equal(ref[0][photo_tail.STATE:photo_tail.OLD],
+                           args64[0][photo_tail.STATE:photo_tail.OLD])
+    for lo, hi in ((photo_tail.STATE, photo_tail.OLD),
+                   (photo_tail.OLD, photo_tail.G_KEEP),
+                   (photo_tail.G_KEEP, photo_tail.FINAL_ERR),
+                   (photo_tail.FINAL_ERR, photo_tail.CARRY_W)):
+        want = ref[0][lo:hi]
+        e_k = float((got[0][lo:hi].cpu().double() - want).abs().max())
+        e_p = max(float((p[0][lo:hi].cpu().double() - want).abs().max())
+                  for p in plains)
+        scale = float(want.abs().max())
+        assert e_k <= 4 * e_p + 2.0 ** -20 * scale, (name, lo, e_k, e_p, scale)
+    if name == "converged":
+        flag = photo_tail.STOP if device_loop else photo_tail.DONE
+        assert int(got[1][flag]) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("device_loop", [True, False])
+def test_photo_tail_kernel_bitwise_repeatable_and_captures(device_loop):
+    """Two calls on the same inputs give the same bits, and a captured
+    CUDA graph's replay the same bits as the eager call; a chain of five
+    calls (the level's iterations, each reading what the last wrote)
+    too."""
+    _need_card()
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    args = _on(_tail_inputs("ill_conditioned", device_loop), "cuda",
+               torch.float32)
+    runs = []
+    for _ in range(2):
+        a = [t.clone() for t in args]
+        for _ in range(5):
+            photo_tail.photo_tail(*a, device_loop)
+        runs.append(a)
+    a = [t.clone() for t in args]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, as torch's recipe does
+        photo_tail.photo_tail(*[t.clone() for t in args], device_loop)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = photo_tail.LAUNCHES
+    with torch.cuda.graph(g):
+        for _ in range(5):
+            photo_tail.photo_tail(*a, device_loop)
+    assert photo_tail.LAUNCHES == before + 5
+    g.replay()
+    torch.cuda.synchronize()
+    runs.append(a)
+    for r in runs[1:]:
+        assert torch.equal(r[0].view(torch.int32), runs[0][0].view(torch.int32))
+        assert torch.equal(r[1], runs[0][1])
+
+
+@pytest.mark.cuda
+def test_photo_tail_wrapper_rejects_bad_input():
+    _need_card()
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    carry, flags, P, HTH, HTz, err = _on(_tail_inputs("accept", True), "cuda",
+                                         torch.float32)
+    before = photo_tail.LAUNCHES
+    with pytest.raises(ValueError):
+        photo_tail.photo_tail(carry, flags, P.cpu(), HTH, HTz, err, True)
+    with pytest.raises(TypeError):
+        photo_tail.photo_tail(carry, flags.float(), P, HTH, HTz, err, True)
+    with pytest.raises(ValueError):
+        photo_tail.photo_tail(carry, flags, P, torch.zeros(8, 8, device="cuda"),
+                              torch.zeros(8, device="cuda"), err, True)
+    with pytest.raises(ValueError):
+        photo_tail.photo_tail(carry[:-1], flags, P, HTH, HTz, err, True)
+    assert photo_tail.LAUNCHES == before
+    # strided matrices are taken as they are (inv_ex returns column-major)
+    photo_tail.photo_tail(carry.clone(), flags.clone(), P.t().contiguous().t(),
+                          HTH.t(), HTz, err, True)
+    assert photo_tail.LAUNCHES == before + 1
+
+
 @pytest.mark.cuda
 def test_livo_on_card_matches_cpu():
-    """A short LIVO run on "cuda" (both kernels) against "cpu" (plain
-    versions), at the golden tolerances, and K2 launched once per
-    photometric iteration."""
+    """A short LIVO run on "cuda" (the kernels) against "cpu" (plain
+    versions), at the golden tolerances, and K2 and the filter tail
+    launched once per photometric iteration."""
     _need_card()
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
     from fast_livo2_tpu_torch.io import synthetic
@@ -406,10 +609,13 @@ def test_livo_on_card_matches_cpu():
         duration=1.6, lidar_hz=10.0, img_hz=10.0, imu_hz=200.0,
         cam=camera.make_camera(cfg.camera), seed=0, n_lines=12,
         n_per_line=500, render=True, fov_deg=360.0)
-    before = photo.LAUNCHES
+    from fast_livo2_tpu_torch.ops import photo_tail
+
+    before, tail_before = photo.LAUNCHES, photo_tail.LAUNCHES
     pipe = LIVOPipeline(cfg, "livo", device="cuda")
     gpu = pipe.process(seq)
     assert photo.LAUNCHES - before == pipe.photo_iterations > 0
+    assert photo_tail.LAUNCHES - tail_before == pipe.photo_iterations
     cpu = LIVOPipeline(cfg, "livo", device="cpu").process(seq)
     assert [t for t, _, _ in gpu] == [t for t, _, _ in cpu]
     np.testing.assert_allclose(np.array([p for _, _, p in gpu]),

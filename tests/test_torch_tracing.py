@@ -229,7 +229,8 @@ def test_traced_graph_marks_and_kernel_nodes_by_stage(monkeypatch):
     assert {p.split("/")[0] for p in nodes} <= set(TOP) | {"other"}
     by = s["launches_by_stage"][0]
     assert by["propagate"] == {"cov_scan": 1}
-    assert by["vio/vio.photometric"] == {"photo_iteration": 20}
+    assert by["vio/vio.photometric"] == {"photo_iteration": 20,
+                                         "photo_tail": 20}
     assert by["downsample/ordered_add"] == {"ordered_add": 1}
     assert by["map/ordered_add"] == {"ordered_add": 2}
     for path, launches in by.items():
