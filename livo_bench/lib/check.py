@@ -36,7 +36,11 @@ judged once the window has closed.
    propagation through K1, no update) against the reference's, every
    state entry and the covariance relative to its largest entry
    (`start_gap`), and its map insert among the step checks.
-3. Not compared: every window frame's position against the generator's
+3. With a mix that turns the online backend on (lib/refine.py): the
+   drawn backend windows against the reference's refinement, and the
+   frame after each one's pose delta is fed back, from its prior with
+   the delta applied (`apply_delta`).
+4. Not compared: every window frame's position against the generator's
    ground truth, in the scene frame the filter starts from, is printed
    on an earlier line (`ground_truth`); it has no control reading, so
    no limit could be set from one. The pool's upkeep after the update
@@ -161,6 +165,20 @@ def ref_vio(P, deploy, post_packed, pts_w, pool, img, fid, device):
     return ref.pack(s, cov), n
 
 
+def apply_delta(packed, R_d, p_d):
+    """A packed state with the backend's pose delta applied, as the
+    pipeline documents its feedback: a left (world-frame) SE(3)
+    correction T <- D T of the pose and v <- R_d v, the biases, gravity,
+    exposure and covariance left as they are; in float64."""
+    v = packed.to(torch.float64).clone()
+    R = torch.as_tensor(np.asarray(R_d, np.float64))
+    p = torch.as_tensor(np.asarray(p_d, np.float64))
+    v[0:9] = (R @ v[0:9].reshape(3, 3)).reshape(9)
+    v[9:12] = R @ v[9:12] + p
+    v[12:15] = R @ v[12:15]
+    return v
+
+
 def program_delta(before, after, f, device):
     """Key codes and added moments of the program's insert: every slot
     whose key or moments changed."""
@@ -224,9 +242,11 @@ def pose_cov_gap(a, b):
 def second_worst(values):
     """A run's reading of a per-frame number: its second-largest frame
     (the largest where one frame was checked); None where a frame gave
-    none."""
+    none; infinite where a frame read NaN (no decision parts to a NaN)."""
     if not values or any(v is None for v in values):
         return None
+    if any(np.isnan(v) for v in values):
+        return float("inf")
     v = sorted(values, reverse=True)
     return float(v[1] if len(v) > 1 else v[0])
 

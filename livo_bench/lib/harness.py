@@ -5,7 +5,13 @@ Set-up is everything before the window and counts in `setup_s`: imports,
 the card's first touch, the recording made on the card from the seed and
 copied to the host, the pipeline, the kernels' build (first run of a
 checkout only), and the mix's warm frames run as fast as they go (IMU
-init, the map-building frame, the capture of the frame graph).
+init, the map-building frame, the capture of the frame graph; with a
+`backend`, the refiner's first windows and the capture of their graphs).
+
+A mix with a `backend` object turns the pipeline's online backend on
+with it (`enable_online_refine(**backend)`), watches the refiner
+(lib/refine.py) and adds its windows to the check; a mix without one
+runs none of that.
 """
 
 import gc
@@ -17,7 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from . import check, deployment, drive, generator, profiling
+from . import check, deployment, drive, generator, profiling, refine
 
 
 @dataclass
@@ -38,6 +44,8 @@ class RunRecord:
     profile_frames: list = field(default_factory=list)
     profile_launches: dict = field(default_factory=dict)
     push_s: float = 0.0  # the feeder's pushes in the window
+    refine: dict = None  # the refiner's submit and device ms, windows completed
+    # and submits refused in the window (a mix with a backend)
 
 
 def _launch_counts():
@@ -88,6 +96,9 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
     marks["recording_s"] = t1 - t0
     cfg = deployment.port_config(deploy, os.path.join(deployment.WORK, "configs"))
     pipe = LIVOPipeline(cfg, deploy["slam_mode"], device=device)
+    backend = mix.get("backend")
+    if backend is not None:
+        pipe.enable_online_refine(**backend)
     exposure = float(deploy["sensor"].get("time_offset", {}).get("exposure_time_init", 0.0))
     feed = drive.Feed(rec, 1.0 / generator.LIDAR_HZ, exposure)
     events = sorted(feed.ready_due)
@@ -107,9 +118,18 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
         moments = []
     else:
         sample, moments = [], sorted(rng.uniform(lo, hi, n_check).tolist())
+    # With a backend: the checked windows (lib/refine.py), and the frame
+    # after each one's pose delta is fed back, step-checked from the
+    # prior with the delta applied.
+    watch, n_windows, follow = None, 0, []
+    if backend is not None:
+        n_windows = mix["check"]["check_windows"]
+        period = refine.period_s(deploy, backend)
+        watch = refine.Watch(pipe._refiner,
+                             refine.draw_ordinals(rng, n_windows, lo, hi, period))
     t2 = time.perf_counter()
     marks["pipeline_s"] = t2 - t1
-    snaps = check.Snapshots(pipe, n_check, frame0=True)
+    snaps = check.Snapshots(pipe, n_check + n_windows, frame0=True)
     snaps.want.update(sample)
     marks["check_buffers_s"] = time.perf_counter() - t2
     nxt = {events[i]: events[i + 1] for i in range(len(events) - 1)}
@@ -124,6 +144,13 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
             moments.pop(0)
             snaps.want.add(t_next)
             sample.append(t_next)
+        if watch is not None and watch.fed_back is not None:
+            watch.fed_back = None
+            deltas = p._refine_deltas
+            if (watch.open and t_next is not None and t_next not in snaps.want
+                    and deltas and deltas[-1][0] == float(p.trajectory[j][0])):
+                snaps.want.add(t_next)
+                follow.append(t_next)
         snaps.after_frame(p, j, t_next)
 
     def read_pose(row):
@@ -150,6 +177,11 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
 
     # ---- the measured window
     first_span = len(spans.rows)
+    if watch is not None:
+        info["refiner_at_window_start"] = {**pipe._refiner.summary(),
+                                           "refused": watch.refused}
+        marks0 = watch.marks()
+        watch.open = True
     if mix["mode"] == "live":
         out.frames = drv.live(mix["warm_s"], seconds)
         out.window_s = seconds
@@ -161,6 +193,19 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
         t_next = pipe.last_update_time
     if cuda:
         torch.cuda.synchronize()
+    if watch is not None:
+        watch.open = False
+        summary = pipe._refiner.summary()
+        info["refiner_at_window_end"] = {**summary, "refused": watch.refused}
+        if summary["graphs"] != info["refiner_at_window_start"]["graphs"]:
+            raise RuntimeError("a refiner graph was captured inside the measured window: "
+                               "the mix's warm_s is too short for its backend")
+        marks1 = watch.marks()
+        r = pipe._refiner
+        out.refine = dict(submit_ms=r.submit_ms[marks0[0]:marks1[0]],
+                          device_ms=r.device_ms[marks0[1]:marks1[1]],
+                          completed=watch.completed, refused=watch.refused,
+                          nonfinite=watch.nonfinite)
     info["window_cut_by_recording_end"] = drv.cut
     out.late_s = list(drv.late)
     out.push_s = sum(b - a for n, a, b in spans.rows[first_span:] if n == "push")
@@ -186,6 +231,7 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
         del prof
 
     # ---- what the window produced, read once it has closed
+    kept = watch.finish() if watch is not None else []
     if cuda:
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -200,12 +246,17 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
         n_tr = torch.stack(vd)[:, 0].cpu().numpy()
         info["tracked_points"] = {"min": float(n_tr.min()), "median": float(np.median(n_tr)),
                                   "max": float(n_tr.max())}
+    deltas = ({t: (R_d, p_d) for t, R_d, p_d in pipe._refine_deltas}
+              if watch is not None else {})
+    ran = {float(r[0]) for r in rows}
+    want_steps = n_check + sum(t in ran for t in follow)
     steps = []
     for j in sorted(snaps.rows):
         if j - 1 in snaps.after and j in snaps.after:
             lg = pipe.log.rows[j]
             steps.append(dict(row=j, t0=float(rows[j - 1][0]), t1=float(rows[j][0]),
                               prior=rows[j - 1][1].detach().cpu(),
+                              delta=deltas.get(float(rows[j - 1][0])),
                               post=rows[j][1].detach().cpu(),
                               before=snaps.after[j - 1], after=snaps.after[j],
                               vio_before=snaps.before_vio.get(j),
@@ -224,13 +275,20 @@ def run(cell_name, seed, seconds, trace, t_process0, control=False,
         torch.cuda.empty_cache()
 
     readings, extra = judge_run(rec, deploy, steps, start, map_shape, device, False,
-                                n_check)
+                                want_steps)
     info["check"] = extra
     if control:
         creadings, cextra = judge_run(rec, deploy, steps, start, map_shape, device, True,
-                                      n_check)
+                                      want_steps)
         info["control"] = {"readings": creadings, **cextra}
     limits = deploy["check"]["limits"]
+    if watch is not None:
+        rr, crr, rextra = refine.judge(kept, rec, deploy, backend, device, control, n_windows)
+        readings.update(rr, refine_nonfinite_windows=out.refine["nonfinite"])
+        extra.update(refine=rextra, follow_frames=follow)
+        if control:
+            info["control"]["readings"].update(crr)
+        limits = {**limits, **mix["check"]["limits"]}
     correct, compared = check.judge(readings, limits)
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name() if cuda else "cpu",
@@ -299,11 +357,15 @@ def judge_run(rec, deploy, steps, start, map_shape, device, control, want_steps)
     for st in steps:
         mp = ref.Map.from_tables(st["before"][0].to(device), st["before"][1].to(device),
                                  torch.float64)
-        want = frame(P64, st["prior"], mp, st["t0"], st["t1"], False)
+        # the program's prior: its previous row, with the backend's pose
+        # delta where one was fed back after that row
+        prior = (st["prior"] if st.get("delta") is None
+                 else check.apply_delta(st["prior"], *st["delta"]))
+        want = frame(P64, prior, mp, st["t0"], st["t1"], False)
         if control:
             mpj = ref.Map.from_tables(st["before"][0].to(device), st["before"][1].to(device),
                                       Pj.dtype)
-            got = frame(Pj, st["prior"], mpj, st["t0"], st["t1"], False)
+            got = frame(Pj, prior, mpj, st["t0"], st["t1"], False)
             pc, pd, n_eff = got[1], got[2].to(torch.float64), got[3]
         else:
             pc, pd = check.program_delta(st["before"], st["after"], torch.float64, device)

@@ -384,6 +384,15 @@ class Map:
         return found, torch.where(found[:, None], self.stats[i], 0.0)
 
 
+def eigh(cov, rows=8192):
+    """torch.linalg.eigh of (n, 3, 3) matrices, in blocks of `rows` (on
+    the card, cuSOLVER's batched solver refuses a batch of 32,768)."""
+    if cov.shape[0] <= rows:
+        return torch.linalg.eigh(cov)
+    parts = [torch.linalg.eigh(cov[i:i + rows]) for i in range(0, cov.shape[0], rows)]
+    return torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
+
+
 def plane_records(st, keys, vsize, init_num, has_kids, cfg):
     """Plane fit of each voxel from its moments (init_plane): (is_plane in
     {1, 0.75, 0}, normal, d, center, radius, cov_nn sym6, cov_qq sym6,
@@ -393,7 +402,7 @@ def plane_records(st, keys, vsize, init_num, has_kids, cfg):
     mean = st[..., 1:4] / ns[..., None]
     cov = sym_mat(st[..., 4:10] / ns[..., None]) - mean[..., :, None] * mean[..., None, :]
     cov = cov + 1e-9 * torch.eye(3, dtype=st.dtype, device=st.device)
-    lam, vec = torch.linalg.eigh(cov)
+    lam, vec = eigh(cov)
     enough = n > init_num
     fits = lam[..., 0] < cfg["planner_threshold"]
     marginal = (fits & (lam[..., 0] > cfg["planner_threshold"] * cfg["margin"])
