@@ -1966,15 +1966,20 @@ def _vio_extras(seq, vio_mod):
     return fused_launches
 
 
-def _refiner_graphs(pipe):
-    return pipe._refiner.summary()["graphs"] if pipe._refiner else 0
+def _backend_graphs(pipe):
+    """The graphs the backend has captured: the refiner's window variants
+    and, with photometric factors on fused frames, the keyframe's capture
+    (each capture synchronizes the device once)."""
+    n = pipe._refiner.summary()["graphs"] if pipe._refiner else 0
+    fg = pipe._frame_graphs
+    return n + (len(fg.keyframe_captures) if fg is not None else 0)
 
 
 def run_backend(seq, mode, refine=None, vio=None, **tpu):
     """One fused run of `seq` on the card with the backend's
     enable_online_refine(**refine) (None: without it), driven frame by
     frame, the launch counts set to 0 just before and read just after.
-    Returns (pipeline, frame ms, syncs a frame, refiner graphs after each
+    Returns (pipeline, frame ms, syncs a frame, backend graphs after each
     frame, launches)."""
     from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
 
@@ -1990,7 +1995,7 @@ def run_backend(seq, mode, refine=None, vio=None, **tpu):
     pipe.push_sequence(seq)
     torch.cuda.synchronize()
     reset_launches()
-    ms, syncs, graphs = drive(pipe, after=_refiner_graphs)
+    ms, syncs, graphs = drive(pipe, after=_backend_graphs)
     launches = read_launches()
     pipe._finalize_host_views()
     return pipe, ms, syncs, graphs, launches
@@ -1998,7 +2003,7 @@ def run_backend(seq, mode, refine=None, vio=None, **tpu):
 
 def replay_syncs(syncs, graphs):
     """Host syncs of the replayed frames (frame 0 builds the map, frame 1
-    captures the frame graph) that captured no refiner graph (torch's
+    captures the frame graph) that captured no backend graph (torch's
     capture synchronizes the device once)."""
     return [n for i, n in enumerate(syncs)
             if i >= 2 and graphs[i] == graphs[i - 1]]

@@ -73,6 +73,19 @@ What a graph needs, and how this module provides it:
   stage added (`kernel_nodes_by_stage`, `launches_by_stage` in
   `summary()`), which a profiler can only approximate, as it drops
   events.
+- The keyframe's photometric capture (LIVOPipeline.enable_online_refine
+  with photo=True). On a keyframe frame the backend re-runs the raster
+  and the retrieval at the posterior state (vio.capture_photo_factors,
+  about a thousand kernels). After a replay that is a graph of its own
+  (`keyframe_capture`), captured on the first keyframe frame that
+  replays the frame graph and replayed after it on the same stream from
+  then on. It reads the frame graph's static buffers (the packed state,
+  the image, the pool and ring, and the scan the replay wrote) and is
+  captured into the frame graph's memory pool: the two replay in turn
+  on one stream and never at once. Its outputs are static too; the
+  pipeline copies them into the keyframe. Frames that are not
+  keyframes, and pipelines without the photometric backend, replay
+  only the frame graph.
 - No fallback. If capture or replay fails, the error is raised, a
   failed capture naming the source line that broke it; the frame never
   runs eagerly instead.
@@ -82,12 +95,13 @@ import os
 import time
 import traceback
 import weakref
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops import cov_scan, ordered_add, photo_tail
 from ..ops import photo_iteration as photo_mod
+from ..utils import timing
 from . import imu as imu_mod
 from . import vio as vio_mod
 from . import voxel_map as vmap_mod
@@ -111,6 +125,15 @@ class Captured(NamedTuple):
     scratch: tuple  # K2's scratch the graph writes (kept alive with it)
     nodes_by_stage: dict  # {stage path: kernel nodes}, traced graphs
     launches_by_stage: dict  # {stage path: {wrapper: launches}}, traced
+
+
+class KeyframeCapture(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    outputs: tuple  # (pos, target, valid, scale) that a replay overwrites
+    launches: Tuple[int, ...]  # kernel launches a replay makes, per _COUNTED
+    seconds: float  # capture time (the warm-up excluded)
+    pool_bytes: int  # device memory reserved by the capture
+    kernel_nodes: Optional[int]  # of the graph, in traced pipelines
 
 
 def launch_counts() -> Tuple[int, ...]:
@@ -147,6 +170,8 @@ class FrameGraphs:
         self._state = None  # {attribute: static value} (tensor or tuple)
         self._inputs = [None] * 4  # static imu, pts, image, frame id
         self.copy_back_bytes = 0
+        # the keyframe's photometric capture, by frame-graph key
+        self.keyframe_captures: Dict[tuple, KeyframeCapture] = {}
 
     @property
     def pipe(self):
@@ -192,6 +217,46 @@ class FrameGraphs:
                 self._inputs[i].copy_(t, non_blocking=True)
         return self._inputs
 
+    def _replay(self, g):
+        """Replay a captured graph on the current stream, counting the
+        wrapper launches it makes; returns its outputs."""
+        g.graph.replay()
+        for mod, n in zip(_COUNTED, g.launches):
+            mod.LAUNCHES += n
+        return g.outputs
+
+    def _warm_and_capture(self, fn, what: str, pool=None):
+        """Run fn() eagerly on the side stream (the warm-up is the real
+        run), then capture it on that stream into a new graph (in `pool`,
+        another graph's memory pool, if given). Returns (the warm-up's
+        outputs, graph, the captured outputs, the launches a replay makes,
+        capture seconds, reserved bytes)."""
+        dev = self.pipe.device
+        cur = torch.cuda.current_stream(dev)
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            outputs = fn()
+        cur.wait_stream(self.side)
+        torch.cuda.synchronize(dev)
+        before = [mod.LAUNCHES for mod in _COUNTED]
+        torch.cuda.empty_cache()  # as the capture does first
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=self.side):
+                captured = fn()
+        except Exception as e:
+            raise RuntimeError(
+                f"tpu.fused_frame: CUDA graph capture of {what} failed at "
+                f"{_capture_error(e)}") from e
+        seconds = time.perf_counter() - t0
+        launches = tuple(mod.LAUNCHES - b for mod, b in zip(_COUNTED, before))
+        for mod, b in zip(_COUNTED, before):
+            mod.LAUNCHES = b  # a capture launches nothing
+        return (outputs, graph, captured, launches, seconds,
+                torch.cuda.memory_reserved(dev) - reserved)
+
     def run(self, imu_pack, pts_pack, img, fid, use_vio: bool,
             defer_map: bool):
         """One fused frame: a replay of the graph of this frame's key, or
@@ -204,41 +269,17 @@ class FrameGraphs:
                use_vio and self.pipe._ray_table is not None)
         g = self.graphs.get(key)
         if g is not None:
-            g.graph.replay()
-            for mod, n in zip(_COUNTED, g.launches):
-                mod.LAUNCHES += n
-            return g.outputs
+            return self._replay(g)
 
         def frame():
             return self.pipe._fused_frame(imu_s, pts_s, img_s, fid_s,
                                           use_vio, defer_map)
 
-        cur = torch.cuda.current_stream(self.pipe.device)
-        self.side.wait_stream(cur)
-        with torch.cuda.stream(self.side):
-            outputs = frame()  # the warm-up is this frame's real run
-        cur.wait_stream(self.side)
-        torch.cuda.synchronize(self.pipe.device)
-        before = [mod.LAUNCHES for mod in _COUNTED]
-        torch.cuda.empty_cache()  # as the capture does first
-        reserved = torch.cuda.memory_reserved(self.pipe.device)
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=self.side):
-                captured = frame()
-        except Exception as e:
-            raise RuntimeError(
-                f"tpu.fused_frame: CUDA graph capture of the {key} frame "
-                f"failed at {_capture_error(e)}") from e
-        seconds = time.perf_counter() - t0
-        launches = tuple(mod.LAUNCHES - b for mod, b in zip(_COUNTED, before))
-        for mod, b in zip(_COUNTED, before):
-            mod.LAUNCHES = b  # a capture launches nothing
+        outputs, graph, captured, *rest = self._warm_and_capture(
+            frame, f"the {key} frame")
         clock = captured[-1]
         self.graphs[key] = Captured(
-            graph, captured, launches, seconds,
-            torch.cuda.memory_reserved(self.pipe.device) - reserved,
+            graph, captured, *rest,
             photo_mod._SCRATCH.get((self.side.device.index,
                                     self.side.cuda_stream), ()),
             clock and clock.kernel_nodes_by_stage(),
@@ -250,14 +291,55 @@ class FrameGraphs:
         self.copy_back_bytes = sum(t.numel() * t.element_size() for t in back)
         return outputs
 
+    def keyframe_capture(self, pg, fn):
+        """The keyframe's photometric capture `fn(packed, img, pg)` (the
+        pipeline's `_photo_factors`) as a graph of its own, where `pg` is
+        the scan that a replay of a frame graph just wrote; None where it
+        is not (a warm-up frame, a split or staged frame, a copied scan):
+        the caller then runs fn eagerly. The first call for a frame graph
+        runs fn eagerly on the side stream, that result the real one, and
+        captures it into the frame graph's memory pool; each later call
+        replays it on the current stream, after the frame's replay. fn
+        reads the static buffers: the packed state, the u8 image, the
+        pool and ring (the pipeline's attributes, bound to them), and
+        `pg`. Returns (pos, target, valid, scale), which the next replay
+        overwrites."""
+        key = next((k for k, g in self.graphs.items() if g.outputs[3] is pg),
+                   None)
+        if key is None:
+            return None
+        c = self.keyframe_captures.get(key)
+        if c is not None:
+            return self._replay(c)
+        nodes = []
+
+        def capture():
+            out = fn(self._state["packed"], self._inputs[2], pg)
+            if (self.pipe.tracing is not None
+                    and torch.cuda.is_current_stream_capturing()):
+                nodes.append(timing.graph_kernel_nodes(
+                    device=pg.pts_w.get_device()))
+            return out
+
+        outputs, graph, captured, *rest = self._warm_and_capture(
+            capture, "the keyframe's photometric capture",
+            pool=self.graphs[key].graph.pool())
+        self.keyframe_captures[key] = KeyframeCapture(
+            graph, captured, *rest, nodes[0] if nodes else None)
+        return outputs
+
     def summary(self) -> dict:
         """The captures of this pipeline: count, seconds and reserved bytes
         each, the launches of K1, K2, ordered_add and photo_tail a replay
         makes, and
         the bytes a frame copies back into the static state; for graphs
         captured with tracing on, their kernel nodes and those launches by
-        stage path (None otherwise) and the stage marks a replay makes."""
+        stage path (None otherwise) and the stage marks a replay makes;
+        and `keyframe_capture`, the keyframe's photometric capture graphs
+        (count, seconds, reserved bytes, and with tracing on their kernel
+        nodes)."""
         gs = list(self.graphs.values())
+        kc = list(self.keyframe_captures.values())
         return {
             "graphs": len(self.graphs),
             "keys": [list(k) for k in self.graphs],
@@ -270,4 +352,9 @@ class FrameGraphs:
             "stage_marks_per_replay": [
                 None if g.outputs[-1] is None else 2 * len(g.outputs[-1].spans)
                 for g in gs],
+            "keyframe_capture": {
+                "graphs": len(kc),
+                "capture_seconds": [c.seconds for c in kc],
+                "pool_bytes": [c.pool_bytes for c in kc],
+                "kernel_nodes": [c.kernel_nodes for c in kc]},
         }

@@ -70,7 +70,9 @@ stream, feeds the newest keyframe's pose delta back into the filter
 (small-delta gated), and collects `refined_keyframes`. The keyframe block
 runs after the frame (after the replay, for a fused frame) and reads
 nothing on the host, except one scalar a keyframe (its plane
-conditioning) when the submit gate `refine_gate` is on.
+conditioning) when the submit gate `refine_gate` is on. On the card,
+after a replayed frame, the photometric capture of `refine_photo` is a
+graph of its own replayed after the frame's (core/frame_graph.py).
 """
 
 import bisect
@@ -275,6 +277,7 @@ class LIVOPipeline:
         # (the distortion-sensitivity comparison of the JAX package)
         self._keyframes: List[tuple] = []
         self._imu_hist: List[tuple] = []  # (stamps, gyr, acc) for the links
+        self._links = {}  # (t0, t1) of two keyframes -> preintegrated link
         self.online_refine = False
         self.refine_window_size = 16
         self.refine_stride = 8
@@ -1313,6 +1316,12 @@ class LIVOPipeline:
         # (the host copy: the state's 25 floats, not its covariance)
         self._keyframes.append((t_ev, packed, scan4, photo,
                                 host_copy(packed[0:25])))
+        if (self.online_refine and self.refine_imu_links and self._imu_hist
+                and len(self._keyframes) > 1):
+            # the link that ends here, now: the frame that submits a window
+            # (its pose waits for the submit) then only gathers its links
+            prev = self._keyframes[-2]
+            self._link(prev, self._keyframes[-1], self._imu_history())
         if self.online_refine and self._refiner is not None:
             self._consume_refine()
             k = len(self._keyframes)
@@ -1344,12 +1353,34 @@ class LIVOPipeline:
     def _capture_photo(self, packed, img_dev, pg: ScanPoints):
         """A keyframe's photometric factors (LIVO): the frame's retrieval
         re-run at the posterior state (vio.capture_photo_factors).
-        Returns (img u8, tau, pos, target, valid, scale) on the device."""
+        Returns (img u8, tau, pos, target, valid, scale) on the device.
+        After a replayed fused frame the capture is a graph of its own,
+        replayed after the frame's (FrameGraphs.keyframe_capture); its
+        outputs are copied, as the next replay overwrites them. Else, and
+        on the CPU, it runs eagerly."""
         state, _ = unpack_state(packed)
-        pos, tgt, val, scale = vio_mod.capture_photo_factors(
-            self.pool, self.ring, img_dev.to(torch.float32), state,
-            pg.pts_w, pg.valid, self.cam, self.Rci, self.Pci, self.vio_cfg)
-        return (img_dev, state.inv_expo, pos, tgt, val, scale)
+        graphs = self._frame_graphs
+        t0 = time.perf_counter()
+        with annotate(timing.KEYFRAME_CAPTURE):
+            got = (None if graphs is None
+                   else graphs.keyframe_capture(pg, self._photo_factors))
+            graphed = got is not None
+            if not graphed:
+                got = self._photo_factors(packed, img_dev, pg)
+        if graphed:
+            got = tuple(t.clone() for t in got)
+        if self.tracing is not None:
+            self.tracing.host(timing.KEYFRAME_CAPTURE, t0)
+        return (img_dev, state.inv_expo, *got)
+
+    def _photo_factors(self, packed, img, pg: ScanPoints):
+        """vio.capture_photo_factors of the frame that left `pg`, at the
+        packed state `packed`, on its u8 image `img`: (pos, target,
+        valid, scale)."""
+        state, _ = unpack_state(packed)
+        return vio_mod.capture_photo_factors(
+            self.pool, self.ring, img.to(torch.float32), state, pg.pts_w,
+            pg.valid, self.cam, self.Rci, self.Pci, self.vio_cfg)
 
     def enable_online_refine(self, keyframe_every: int = 10,
                              window: int = 16, stride: int = 8,
@@ -1430,9 +1461,7 @@ class LIVOPipeline:
             return None
         K = len(kfs)
         ts = np.array([kf[0] for kf in kfs])
-        t_all = np.concatenate([h[0] for h in self._imu_hist])
-        g_all = np.concatenate([h[1] for h in self._imu_hist])
-        a_all = np.concatenate([h[2] for h in self._imu_hist])
+        t_all, g_all, a_all = self._imu_history()
         lo = ts[0] - 2.0  # trim the history below the window
         if len(t_all) and t_all[0] < lo - 10.0:
             keep = t_all >= lo
@@ -1442,19 +1471,40 @@ class LIVOPipeline:
         dts = np.full(K, 1e-3)
         valid = np.zeros(K, bool)
         for k in range(K - 1):
-            st = _host_state(kfs[k]).astype(np.float64)
-            dRk, dpk, dtk = ba.preintegrate(
-                t_all, g_all, a_all, st[15:18], st[18:21], ts[k], ts[k + 1])
+            dRk, dpk, dtk = self._link(kfs[k], kfs[k + 1],
+                                       (t_all, g_all, a_all))
             dR[k], dp[k], dts[k] = dRk, dpk, max(dtk, 1e-3)
             # a sample-free interval (the dtk == 0 sentinel) must not
             # become an identity link asserting zero relative motion
             valid[k] = dtk > 1e-3
+        # a later window starts at this one's first keyframe or after it
+        self._links = {t: v for t, v in self._links.items() if t[0] >= ts[0]}
         f32 = np.float32
         return ba.ImuLinks(
             dR=self._put(dR.astype(f32)), dp=self._put(dp.astype(f32)),
             dt=self._put(dts.astype(f32)),
             vel=torch.stack([kf[1][12:15] for kf in kfs]),
             grav=kfs[-1][1][21:24], valid=self._put(valid))
+
+    def _link(self, kf_a, kf_b, imu):
+        """ba.preintegrate of the raw IMU `imu` (stamps, gyr, acc, holding
+        every kept sample after kf_a's time) from keyframe kf_a to kf_b,
+        biased by kf_a's filter biases: (dR, dp, dt), computed once for
+        the pair (a link is in window / stride windows)."""
+        from ..parallel import ba
+
+        key = (kf_a[0], kf_b[0])
+        link = self._links.get(key)
+        if link is None:
+            st = _host_state(kf_a).astype(np.float64)
+            link = self._links[key] = ba.preintegrate(
+                *imu, st[15:18], st[18:21], kf_a[0], kf_b[0])
+        return link
+
+    def _imu_history(self):
+        """The kept raw IMU history as (stamps, gyr, acc) arrays."""
+        return tuple(np.concatenate([h[j] for h in self._imu_hist])
+                     for j in range(3))
 
     def _submit_refine(self) -> bool:
         kfs = self._keyframes[-self.refine_window_size:]

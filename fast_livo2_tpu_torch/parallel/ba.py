@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from ..core.lio import calc_body_cov
-from ..core.voxel_map import (VoxelMapConfig, make_map, match_planes, quad6,
-                              sym6, update_map)
+from ..core.voxel_map import (VoxelMapConfig, _const, make_map, match_planes,
+                              quad6, sym6, update_map)
 from ..models import camera as cam_mod
 from ..ops import image as img_ops
 from ..ops import so3
@@ -137,11 +137,20 @@ class PhotoFactors(NamedTuple):
 
 
 def _photo_terms(rot, pos, ph: PhotoFactors, cam, Rci, Pci, ps: int,
-                 w_photo: float):
+                 w_photo: float, unused=None):
     """Every keyframe's photometric contribution to its (HtH (K, 6, 6),
-    Htz (K, 6)) under the plane term's left/world-frame perturbation."""
+    Htz (K, 6)) under the plane term's left/world-frame perturbation.
+
+    A factor slot that is not used (`valid` false, behind the camera, or
+    off the image at the 8 px border) is sampled and differentiated at
+    the camera-frame point (0, 0, 1), and its residual and Jacobian are
+    then set to exactly 0: an unused slot may hold a stale point near a
+    keyframe camera's plane, whose float32 terms overflow (a projection
+    of ~1e13 px), and a weight of 0 times inf would be NaN. `unused`: a
+    0-d int64 tensor that receives the count of unused slots."""
     K, M = ph.valid.shape
     f = rot.dtype
+    dev = str(rot.device)
     Rcw = Rci @ rot.transpose(-1, -2)  # (K, 3, 3)
     Pcw = Pci - torch.einsum("kij,kj->ki", Rcw, pos)
     pf = torch.einsum("kij,kmj->kmi", Rcw, ph.pts_w) + Pcw[:, None, :]
@@ -149,12 +158,19 @@ def _photo_terms(rot, pos, ph: PhotoFactors, cam, Rci, Pci, ps: int,
     px = cam_mod.world2cam(cam, pf_flat)
     ok = (ph.valid.reshape(-1) & (pf_flat[:, 2] > 1e-6)
           & cam_mod.in_frame(cam, px, 8))
+    if unused is not None:
+        unused.copy_(torch.sum(~ok))
+    # the safe point (0, 0, 1) projects to the principal point
+    pf_flat = torch.where(ok[:, None], pf_flat, _const((0.0, 0.0, 1.0), f, dev))
+    px = torch.where(ok[:, None], px, _const((cam.cx, cam.cy), f, dev))
     kf = torch.arange(K, device=rot.device).repeat_interleave(M)
     val, du, dv = img_ops.sample_patches_with_grad(
         ph.img, px, ph.scale.reshape(-1), ps, img_idx=kf)
     P2 = ps * ps
     tau = ph.inv_expo[:, None, None]
-    r = tau * val.reshape(K, M, P2) - ph.target  # (K, M, ps²)
+    okk = ok.reshape(K, M)
+    r = torch.where(okk[..., None], tau * val.reshape(K, M, P2) - ph.target,
+                    0.0)  # (K, M, ps²)
     inv_scale = 1.0 / ph.scale.to(f)
     Jimg = (torch.stack([du, dv], dim=-1).reshape(K, M, P2, 2)
             * (tau * inv_scale[..., None])[..., None])
@@ -166,8 +182,9 @@ def _photo_terms(rot, pos, ph: PhotoFactors, cam, Rci, Pci, ps: int,
                      so3.skew(ph.pts_w - pos[:, None, :]))
     Jth = torch.einsum("kmpj,kmjc->kmpc", Jpix, A)
     Jt = torch.einsum("kmpj,kjc->kmpc", Jpix, -Rcw)
-    J6 = torch.cat([Jth, Jt], dim=-1)  # (K, M, ps², 6)
-    w = torch.where(ok, w_photo, 0.0).to(f).reshape(K, M)
+    J6 = torch.where(okk[..., None, None], torch.cat([Jth, Jt], dim=-1),
+                     0.0)  # (K, M, ps², 6)
+    w = torch.full((K, M), w_photo, dtype=f, device=rot.device)
     HtH = torch.einsum("kmpi,km,kmpj->kij", J6, w, J6)
     Htz = -torch.einsum("kmpi,km,kmp->ki", J6, w, r)
     return HtH, Htz
@@ -279,7 +296,8 @@ def refine_window(window: Window, map_cfg: VoxelMapConfig,
                   link_sweeps: int = 4,
                   photo: Optional[PhotoFactors] = None, cam=None,
                   Rci=None, Pci=None, patch_size: int = 8,
-                  photo_weight: float = 0.01):
+                  photo_weight: float = 0.01,
+                  photo_unused: Optional[torch.Tensor] = None):
     """Alternate map rebuild / pose refinement. Returns (window, n_used
     (K,) int32).
 
@@ -290,6 +308,9 @@ def refine_window(window: Window, map_cfg: VoxelMapConfig,
     position (m) residual at dt = 1 s; weights scale as 1/(σ²·dt).
     photo: photometric pose factors (needs cam / Rci / Pci); photo_weight
     the per-pixel information (the VIO convention 1/img_point_cov).
+    photo_unused: a 0-d int64 tensor to which the count of factor slots
+    left unused at the last Gauss-Newton step is added (with a mesh,
+    those of the rank's keyframes); an unused factor adds nothing.
     mesh: a sharding.Mesh; every rank passes the whole window (and links
     and factors) and gets the whole refined window back, having refined
     its slice of the keyframes (K must divide by the mesh size; see the
@@ -303,9 +324,12 @@ def refine_window(window: Window, map_cfg: VoxelMapConfig,
     Kl = scans.shape[0]
     body6 = sym6(calc_body_cov(scans.reshape(Kl * N, 3), dept_err, beam_err))
     valid_f = valid.reshape(Kl * N)
+    last_unused = None
     if photo is not None:
         photo = PhotoFactors(*(x[sl] for x in photo))
-    photo_ctx = ((cam, Rci, Pci, patch_size, photo_weight)
+        if photo_unused is not None:
+            last_unused = torch.zeros((), dtype=torch.int64, device=dev)
+    photo_ctx = ((cam, Rci, Pci, patch_size, photo_weight, last_unused)
                  if photo is not None else None)
 
     def whole(rot_l, pos_l):
@@ -359,6 +383,8 @@ def refine_window(window: Window, map_cfg: VoxelMapConfig,
         rot = so3.normalize_rotation(rot)
     if mesh is not None:
         n_used = shd.all_gather_rows(n_used, mesh)
+    if last_unused is not None:
+        photo_unused.add_(last_unused)
     return window._replace(rot=rot, pos=pos), n_used
 
 
@@ -443,6 +469,11 @@ class OnlineRefiner:
         self._pending = None
         self._stream = None
         self._graphs = {}
+        # photometric factor slots left unused, summed on the device by
+        # every window with factors (refine_window(photo_unused=)), and
+        # the sum as of the last window polled back (from its host copy)
+        self._photo_unused = None
+        self._unused_polled = None
         self.submit_ms = []  # host ms of each submit
         self.device_ms = []  # refiner-stream ms of each completed window
 
@@ -451,7 +482,12 @@ class OnlineRefiner:
         return self._pending is not None
 
     def _refine(self, window, links, photo):
-        kw = self.photo_ctx if photo is not None else {}
+        kw = {}
+        if photo is not None:
+            if self._photo_unused is None:
+                self._photo_unused = torch.zeros(
+                    (), dtype=torch.int64, device=window.pos.device)
+            kw = dict(self.photo_ctx, photo_unused=self._photo_unused)
         refined, _ = refine_window(
             window, self.map_cfg, outer_iters=self.outer_iters,
             gn_iters=self.gn_iters, dept_err=self.dept_err,
@@ -474,13 +510,15 @@ class OnlineRefiner:
             self._pending = (meta, *self._dispatch(window, links, photo))
         else:
             rot, pos = self._refine(window, links, photo)
-            self._pending = (meta, rot, pos, None, None, None)
+            unused = None if photo is None else self._photo_unused.clone()
+            self._pending = (meta, rot, pos, unused, None, None, None)
         self.submit_ms.append((time.perf_counter() - t0) * 1e3)
         return True
 
     def _dispatch(self, window, links, photo):
         """Queue the refinement on the refiner's stream: (host rot, host
-        pos, done event, (start, end) events, the tensors held)."""
+        pos, host unused-slot sum or None, done event, (start, end)
+        events, the tensors held)."""
         dev = window.pos.device
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
@@ -503,7 +541,8 @@ class OnlineRefiner:
                 g.graph.replay()
                 rot, pos = g.outputs
             end.record(stream)
-            host = (_pinned_copy(rot), _pinned_copy(pos))
+            host = (_pinned_copy(rot), _pinned_copy(pos),
+                    None if photo is None else _pinned_copy(self._photo_unused))
             done.record(stream)
         held = (flat, rot, pos)
         if g is None and self.mesh is None:
@@ -541,20 +580,27 @@ class OnlineRefiner:
         waits for it (end of stream), as does every poll with a mesh."""
         if self._pending is None:
             return None
-        meta, rot, pos, done, events, _ = self._pending
+        meta, rot, pos, unused, done, events, _ = self._pending
         if done is not None:
             if force or self.mesh is not None:
                 done.synchronize()
             elif not done.query():
                 return None
             self.device_ms.append(events[0].elapsed_time(events[1]))
+        if unused is not None:
+            self._unused_polled = int(unused)
         self._pending = None
         return meta, rot.numpy(), pos.numpy()
 
     def summary(self) -> dict:
         """The captured variants: their keys (links, photo), capture
-        seconds and reserved pool bytes."""
+        seconds and reserved pool bytes; and `photo_unused_slots`, the
+        photometric factor slots left unused at each window's last
+        Gauss-Newton step, summed on the device over the windows with
+        factors up to the last one polled back (None before it). Nothing
+        here waits for the device."""
         return {"graphs": len(self._graphs),
                 "variants": [list(k[:2]) for k in self._graphs],
                 "capture_seconds": [g.seconds for g in self._graphs.values()],
-                "pool_bytes": [g.pool_bytes for g in self._graphs.values()]}
+                "pool_bytes": [g.pool_bytes for g in self._graphs.values()],
+                "photo_unused_slots": self._unused_polled}

@@ -34,6 +34,11 @@ import torch
 STAGES = ("propagate", "undistort", "downsample", "lio", "map", "vio")
 # The most stage bounds one frame marks (kSlots of csrc/stage_mark.cu).
 SLOTS = 64
+# A range outside the frame: the keyframe's photometric capture for the
+# online backend, replayed after the frame graph (core/frame_graph.py). It
+# is an `annotate` range (a device range in a profile) and, with the
+# tracer on, a host span of the poll.
+KEYFRAME_CAPTURE = "keyframe_capture"
 
 _ACTIVE = contextvars.ContextVar("stage_clock", default=None)
 _fns = {}

@@ -101,13 +101,13 @@ def _links(gt_rot, gt_pos, dt=0.5, seed=1):
             np.arange(K) < K - 1)
 
 
-def _photo(gt_rot, gt_pos, M=64, ps=8, seed=3):
+def _photo(gt_rot, gt_pos, M=64, ps=8, seed=3, cam_cfg=CAM):
     """tests/test_ba.py's _photo_window factors for the window's
     keyframes: a textured wall at x = 6 in front of a forward camera,
     factor points on it, targets sampled from each keyframe's image at
     its true pose."""
     rng = np.random.default_rng(seed)
-    cam = tcam.make_camera(CameraConfig(**CAM))
+    cam = tcam.make_camera(CameraConfig(**cam_cfg))
     Rci = synthetic.R_CI_FORWARD.astype(np.float32)
     wall = synthetic.Plane(point=np.array([6.0, 0.0, 0.0]),
                            normal=np.array([-1.0, 0, 0]),
@@ -168,13 +168,13 @@ VARIANTS = (("plain", False, False), ("links", True, False),
             ("photo", False, True), ("links_photo", True, True))
 
 
-def _port_refine(w, links, photo, Rci, use_l, use_p, **kw):
+def _port_refine(w, links, photo, Rci, use_l, use_p, cam_cfg=CAM, **kw):
     return ba.refine_window(
         convert.window_from_numpy(*w, device="cpu"), tvm.VoxelMapConfig(**MAP),
         outer_iters=2, gn_iters=2, link_sweeps=2,
         imu_links=convert.links_from_numpy(*links, device="cpu") if use_l else None,
         photo=convert.photo_from_numpy(*photo, device="cpu") if use_p else None,
-        cam=tcam.make_camera(CameraConfig(**CAM)), Rci=torch.from_numpy(Rci),
+        cam=tcam.make_camera(CameraConfig(**cam_cfg)), Rci=torch.from_numpy(Rci),
         Pci=torch.zeros(3), **kw)
 
 
@@ -204,6 +204,57 @@ def test_refine_window_matches_jax(case, variant):
     assert n_used.min() > 500
     # the refinement moved the poses (the case tests something)
     assert np.abs(refined.pos.numpy() - w[1]).max() > 10 * POS_TOL_M
+
+
+# the Avia rig's pinhole distortion (config/camera_pinhole.yaml), under
+# which a point 4 cm before the camera's plane projects beyond 1e12 px
+CAM_AVIA = dict(CAM, cam_d0=-0.07616, cam_d1=0.123001, cam_d2=-0.00113,
+                cam_d3=0.000251)
+
+
+@pytest.mark.parametrize("use_l", [False, True], ids=["photo", "links_photo"])
+def test_refine_window_unused_photo_slots_near_the_camera_plane(use_l):
+    """Unused photometric factor slots (valid false) holding stale points
+    4 cm before keyframe 1's camera plane, which project beyond 1e12 px:
+    the refined window is finite and, bit for bit, the window with those
+    slots moved to an ordinary point 2 m before the camera (an unused
+    factor adds nothing, whatever its point); the refiner's device count
+    of unused slots is the same for both, and counts them."""
+    w, gt_rot, gt_pos = _window()
+    links = _links(gt_rot, gt_pos)
+    photo, Rci = _photo(gt_rot, gt_pos, cam_cfg=CAM_AVIA)
+    cam = tcam.make_camera(CameraConfig(**CAM_AVIA))
+    stale = np.array([5.94, 2.19, 0.04])  # camera frame, metres
+    assert tcam.world2cam(cam, torch.tensor(stale[None], dtype=torch.float32)
+                          ).abs().max() > 1e12
+    Rcw = Rci.astype(np.float64) @ w[0][1].astype(np.float64).T
+
+    def slots_at(p_cam):
+        ph = [a.copy() for a in photo]
+        ph[4][1, 0:8] = False
+        ph[2][1, 0:8] = p_cam @ Rcw + w[1][1]  # p_w = Rcw^T p_cam + pos
+        return ph
+
+    got = {}
+    for name, p_cam in (("near", stale), ("ordinary", np.array([0.1, -0.05, 2.0]))):
+        ph = slots_at(p_cam)
+        refined, n_used = _port_refine(w, links, ph, Rci, use_l, True,
+                                       cam_cfg=CAM_AVIA)
+        r = ba.OnlineRefiner(tvm.VoxelMapConfig(**MAP), outer_iters=1,
+                             gn_iters=1, cam=cam, Rci=torch.from_numpy(Rci),
+                             Pci=torch.zeros(3))
+        assert r.summary()["photo_unused_slots"] is None
+        assert r.submit(convert.window_from_numpy(*w, device="cpu"),
+                        photo=convert.photo_from_numpy(*ph, device="cpu"))
+        assert np.isfinite(r.poll()[2]).all()
+        got[name] = (refined.rot.numpy(), refined.pos.numpy(), n_used.numpy(),
+                     r.summary()["photo_unused_slots"])
+    rot, pos, n_used, unused = got["near"]
+    assert np.isfinite(rot).all() and np.isfinite(pos).all()
+    for a, b in zip(got["near"][0:3], got["ordinary"][0:3]):
+        np.testing.assert_array_equal(a, b)
+    assert unused == got["ordinary"][3] and 8 <= unused < 4 * 64
+    assert np.abs(pos - w[1]).max() > 10 * POS_TOL_M  # the window moved
 
 
 def test_online_refiner_async_contract(case):

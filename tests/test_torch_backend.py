@@ -96,6 +96,14 @@ def test_online_refine_with_feedback(seq):
     refined = pipe.refined_keyframe_trajectory()
     assert len(refined) == len(pipe._keyframes)
     assert np.mean(_errs(refined, seq)) < 0.05
+    # each link was preintegrated once, at its end keyframe: the last
+    # window's links come from that cache, bit for bit a fresh build
+    kfs = pipe._keyframes[-pipe.refine_window_size:]
+    assert all((a[0], b[0]) in pipe._links for a, b in zip(kfs, kfs[1:]))
+    cached = pipe._build_links(kfs)
+    pipe._links = {}
+    for c, f in zip(cached, pipe._build_links(kfs)):
+        assert torch.equal(c, f)
     assert ate_fb <= max(ate_plain * 1.3, ate_plain + 0.02), (ate_fb, ate_plain)
     # the gate: a window whose keyframes all have plane_cond >= gate is
     # healthy and skipped (this room's walls give plane_cond ~0.1-0.3)

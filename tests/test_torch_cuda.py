@@ -991,6 +991,84 @@ def test_backend_delta_reaches_the_next_replay():
         torch.use_deterministic_algorithms(was)
 
 
+def _keyframe_capture_run(photo, trace=False, duration=2.4):
+    """A fused LIVO run of `_small_livo` with the online backend on (a
+    keyframe every frame, photometric factors with `photo`); each
+    keyframe's capture is also made eagerly, right after the pipeline's,
+    with vio.capture_photo_factors on the same state. Returns (pipeline,
+    [(capture graphs before the keyframe, the pipeline's factors, the
+    eager ones)])."""
+    from fast_livo2_tpu_torch.core import vio as vio_mod
+    from fast_livo2_tpu_torch.core.pipeline import LIVOPipeline
+    from fast_livo2_tpu_torch.core.state import unpack_state
+
+    cfg, seq = _small_livo(duration=duration, fused_frame=True)
+    pipe = LIVOPipeline(cfg, "livo", device="cuda")
+    if trace:
+        pipe.enable_tracing()
+    pipe.enable_online_refine(keyframe_every=1, window=4, stride=2,
+                              photo=photo)
+    made, orig = [], pipe._capture_photo
+
+    def both(packed, img_dev, pg):
+        n = len(pipe._frame_graphs.keyframe_captures)
+        got = orig(packed, img_dev, pg)
+        state, _ = unpack_state(packed)
+        want = vio_mod.capture_photo_factors(
+            pipe.pool, pipe.ring, img_dev.to(torch.float32), state, pg.pts_w,
+            pg.valid, pipe.cam, pipe.Rci, pipe.Pci, pipe.vio_cfg)
+        made.append((n, got[2:], want))
+        return got
+
+    pipe._capture_photo = both
+    pipe.push_sequence(seq)
+    while pipe.poll(max_frames=1, flush=True):
+        pass
+    torch.cuda.synchronize()
+    return pipe, made
+
+
+@pytest.mark.cuda
+def test_keyframe_capture_graph_equals_eager_capture():
+    """With the photometric backend on fused frames, the keyframe's
+    photometric capture is captured once, as a graph of its own, and
+    replayed after the frame's graph on every later keyframe: over the
+    replayed keyframes (three or more) its factors equal, bit for bit,
+    vio.capture_photo_factors called eagerly on the same state; the
+    traced pipeline's summary counts the capture's kernel nodes, and its
+    tracer holds a `keyframe_capture` host span a keyframe."""
+    _need_card()
+    pipe, made = _keyframe_capture_run(photo=True, trace=True)
+    replays = [m for m in made if m[0] == 1]
+    assert len(replays) >= 3 and made[0][0] == 0
+    for _, got, want in made:
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert any(bool(w[2].any()) for _, _, w in replays)  # factors were valid
+    s = pipe._frame_graphs.summary()
+    kc = s["keyframe_capture"]
+    assert kc["graphs"] == 1 and s["graphs"] == 1
+    assert kc["kernel_nodes"][0] > 100, kc
+    n_kf = sum(n == "keyframe_capture" for _, n, *_ in pipe.tracing.spans)
+    assert n_kf == len(made)
+    assert pipe.refine_submits >= 2
+    pipe._consume_refine(force=True)
+    r = pipe._refiner
+    assert len(r.device_ms) >= 1 and r.summary()["photo_unused_slots"] >= 0
+
+
+@pytest.mark.cuda
+def test_fused_backend_without_photo_captures_no_keyframe_graph():
+    """A fused LIVO run with the online backend but no photometric
+    factors replays only the frame graph: no keyframe capture graph."""
+    _need_card()
+    pipe, made = _keyframe_capture_run(photo=False, duration=1.6)
+    assert not made and pipe.refine_submits >= 1
+    s = pipe._frame_graphs.summary()
+    assert s["graphs"] == 1 and s["keyframe_capture"]["graphs"] == 0
+    assert pipe._refiner.summary()["photo_unused_slots"] is None
+
+
 @pytest.mark.cuda
 def test_fused_capture_with_a_host_read_raises():
     """A host read inside the frame cannot be captured: the pipeline
