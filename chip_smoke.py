@@ -30,10 +30,12 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     and without distortion; bitwise the same over 20
                     calls and across calls at another M (the last-block
                     ticket is reset); one device kernel a call; timed;
-                    then at each pinhole rig's processed camera and
-                    tracked slots (640 x 512 M 396, 752 x 480 M 486 in
-                    the above-448 sampling, 612 x 512 M 378), each
-                    timed and bounded;
+                    then at each rig's processed camera and tracked
+                    slots (640 x 512 M 396, 752 x 480 M 486 in the
+                    above-448 sampling, hilti22's 720 x 540 equidistant
+                    fisheye M 432 in the equidistant instantiation and
+                    the per-tap sampling, 612 x 512 M 378), each timed
+                    and bounded;
   4a. kernel_tail   the photometric filter tail (ops/photo_tail, which
                     ports no TPU kernel) against its plain version at
                     avia's and hilti22's shapes (n = 7) and at n = 6, in
@@ -206,7 +208,7 @@ into `build/kernels/` at first use. Phases, each printing one JSON line:
                     gates and tracked points, fused vs split and the two
                     runs of each form 0.0 m apart, 0 syncs in a replay,
                     K1 once a frame,
-                    ordered_add once a site, K2 20 / 15 / 0 / 20 a fused
+                    ordered_add once a site, K2 20 / 15 / 20 / 20 a fused
                     VIO frame; bag bytes, convert s, capture s, graph
                     pool bytes, each side's median over its two runs.
                     The CPU tests (tests/test_torch_rigs*.py) import
@@ -549,7 +551,8 @@ def k2_inputs(img, with_dist, seed=7, M=M_MAIN, cam=None):
     """M points spread over the frame 1.5-8 m ahead of the camera, stride
     exponents 0-5, about 10 % masked out, the camera pose at the origin
     and the forward mount's Jacobian blocks. The camera: camera_config()'s
-    (radtan coefficients if `with_dist`), or `cam` with its own."""
+    (radtan coefficients if `with_dist`), or `cam` with its own model and
+    coefficients (the row's model flag set for the equidistant one)."""
     from fast_livo2_tpu_torch.io import synthetic
     from fast_livo2_tpu_torch.models import camera
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
@@ -573,7 +576,8 @@ def k2_inputs(img, with_dist, seed=7, M=M_MAIN, cam=None):
     par = photo.pack_params(torch.eye(3, device=dev), torch.zeros(3, device=dev),
                             torch.tensor(1.05, device=dev), Rci, 0.0 * Rci,
                             cam.fx, cam.fy, cam.cx, cam.cy, dist, 1.0,
-                            1.0 if any(dist) else 0.0)
+                            1.0 if any(dist) else 0.0,
+                            equidistant=cam.model == "equidistant")
     return img, meta, refp, par
 
 
@@ -679,11 +683,13 @@ def k2_bound(img, meta, par, clip_taps):
 
 
 def k2_rig_shapes():
-    """K2 against its plain version at each pinhole rig's processed camera
-    (its size, intrinsics and radtan distortion) and tracked-slot count,
-    in the sampling the port takes there (clip_taps_at(M): M = 486 is
-    above the JAX package's 448-point gate), on a smooth frame; each
-    timed with its plain version and bounded."""
+    """K2 against its plain version at each rig's processed camera (its
+    size, intrinsics and distortion; hilti22's equidistant fisheye in the
+    kernel's equidistant instantiation) and tracked-slot count, in the
+    sampling the port takes there (clip_taps_at(M, model): M = 486 is
+    above the JAX package's 448-point gate, and the fisheye samples per
+    tap at every M), on a smooth frame; each timed with its plain version
+    and bounded."""
     from fast_livo2_tpu_torch.models import camera
     from fast_livo2_tpu_torch.ops import photo_iteration as photo
     from fast_livo2_tpu_torch.utils.config import load_config
@@ -693,10 +699,12 @@ def k2_rig_shapes():
         cam = camera.make_camera(load_config(*rig_paths(name)).camera)
         img = torch.from_numpy(smooth_image(cam.height, cam.width, seed=M)).cuda()
         args = k2_inputs(img, True, M=M, cam=cam)
-        clip = photo.clip_taps_at(M)
-        check(clip == (M > 448), f"K2 {name}: clip_taps_at({M}) = {clip}")
+        equi = cam.model == "equidistant"
+        clip = photo.clip_taps_at(M, cam.model)
+        check(clip == (M > 448 or equi),
+              f"K2 {name}: clip_taps_at({M}, {cam.model}) = {clip}")
         before = photo.LAUNCHES
-        got = photo.photo_iteration(*args, clip_taps=clip)
+        got = photo.photo_iteration(*args, clip_taps=clip, equidistant=equi)
         torch.cuda.synchronize()
         check(photo.LAUNCHES == before + 1, f"K2 {name}: no launch counted")
         err, rel = check_k2(got, photo.photo_iteration_plain(
@@ -704,10 +712,12 @@ def k2_rig_shapes():
         bound_ms, bound_by, taps, nbytes, flops = k2_bound(
             img, args[1], args[3], clip)
         out[name] = {
-            "H": cam.height, "W": cam.width, "M": M, "clip_taps": clip,
+            "H": cam.height, "W": cam.width, "M": M, "model": cam.model,
+            "clip_taps": clip,
             "dist": list(cam.d), "max_abs_err": err,
             "max_err_over_block_max": rel,
-            "ms": time_cuda(lambda: photo.photo_iteration(*args, clip_taps=clip)),
+            "ms": time_cuda(lambda: photo.photo_iteration(
+                *args, clip_taps=clip, equidistant=equi)),
             "plain_ms": time_cuda(lambda: photo.photo_iteration_plain(
                 *args, clip_taps=clip), calls=20),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3299,8 +3309,7 @@ def phase_tools(seq):
 # config pair, scene, LiDAR pattern (lines x points over a horizontal
 # field of view, the rig's points a scan), camera rate and seconds, and
 # whether it is recorded as a ROS bag. K2 launches a fused VIO frame:
-# pyramid levels x iterations on a pinhole camera, 0 on the fisheye
-# (its update runs in tensor ops, as in the JAX package).
+# pyramid levels x iterations, on the pinhole cameras and the fisheye.
 RIGS = {
     # Every rig's default runs, two of each form, are held to 0.0 m apart:
     # the float scatter-adds sum in lane order (ops/ordered_add).
@@ -3343,8 +3352,9 @@ XT32_FIELDS = (("x", 0, 7, "f4"), ("y", 4, 7, "f4"), ("z", 8, 7, "f4"),
                ("intensity", 16, 7, "f4"), ("timestamp", 24, 8, "f8"),
                ("ring", 32, 4, "u2"))
 POINT_STEP = 48
-# K2 at each pinhole rig's processed camera and tracked-slot count
-RIG_K2_SHAPES = (("avia", 396), ("ntu_viral", 486), ("mars_lvig", 378))
+# K2 at each rig's processed camera and tracked-slot count
+RIG_K2_SHAPES = (("avia", 396), ("ntu_viral", 486), ("hilti22", 432),
+                 ("mars_lvig", 378))
 
 
 def rig_paths(name):
@@ -3542,7 +3552,7 @@ def cli_rig_run(config, camera, seq_dir, out):
         got["iterations"] = pipe.photo_iterations
         got["levels_x_iterations"] = (pipe.vio_cfg.pyramid_levels
                                       * pipe.vio_cfg.max_iterations)
-        got["fused_k2"] = (pipe.cam.model == "pinhole"
+        got["fused_k2"] = (pipe.cam.model in ("pinhole", "equidistant")
                            and pipe.vio_cfg.pallas_photo)
         got["traj"] = list(pipe.trajectory)
         return pipe.trajectory
@@ -3880,8 +3890,7 @@ def phase_rig(name, built, ready):
     algorithms change no value read); one graph, 0 host syncs in every
     replayed frame; K1 once a frame; ordered_add once a site a frame;
     K2 on every fused VIO frame levels x iterations times
-    (0 on the fisheye) and on a split run once an iteration that took
-    effect. The phase's line is printed before a failed gate fails it.
+    and on a split run once an iteration that took effect. The phase's line is printed before a failed gate fails it.
     Returns the first fused run's launches."""
     from fast_livo2_tpu_torch.io import synthetic
     from fast_livo2_tpu_torch.utils.config import load_config
@@ -3955,7 +3964,8 @@ def phase_rig(name, built, ready):
             nums.update(split_checks(f"rig {name} {form}", x,
                                      x["iterations"] if per_frame else None))
             check(per_frame or x["launches"]["photo_iteration"] == 0,
-                  f"rig {name} {form}: K2 launched on the fisheye")
+                  f"rig {name} {form}: K2 launched with the fused "
+                  f"photometric update off")
         else:
             nums.update(fused_checks(f"rig {name} {form}", x, frames - 1,
                                      per_frame))

@@ -24,7 +24,7 @@ the JAX package:
   each carried value updated under torch.where(active, new, old) and no
   host read. Each iteration is one fused kernel launch
   (ops/photo_iteration, TPU kernel K2) where the JAX package's predicate
-  holds, else the torch-op chain.
+  holds or the camera is equidistant, else the torch-op chain.
 - Map maintenance: grid-scatter argmax for new points, masked
   observation appends with min-score eviction, NCC re-scoring and normal
   refinement from the LIO plane map, all written with one scatter per
@@ -128,7 +128,8 @@ class VIOConfig(NamedTuple):
     inverse_composition_en: bool = False
     true_pyramid: bool = False  # sample box-average levels (ops/image.box_stack)
     pallas_photo: bool = False  # one fused kernel per photometric
-    # iteration (ops/photo_iteration); pinhole + raw-strided sampling only
+    # iteration (ops/photo_iteration); pinhole or equidistant camera,
+    # raw-strided sampling only
     # map maintenance
     select_obs_gap_p: float = 0.5  # delta_p threshold (:939)
     select_obs_gap_theta: float = 0.3
@@ -552,12 +553,15 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
                  if cfg.true_pyramid else None)
     # The JAX package's dispatch predicate (vio.py:546-549) without its
     # two TPU-only terms, the backend test and the M <= 448 gate (both set
-    # from TPU timings): the kernel on CUDA, its plain version on CPU. Above
-    # the gate the kernel samples as the JAX package's XLA path does there
-    # (clip_taps), decided here from the static M.
+    # from TPU timings), and with the equidistant camera, which K2 also
+    # projects: the kernel on CUDA, its plain version on CPU. Where the JAX
+    # package samples through its XLA path (above the gate, and the
+    # equidistant camera at every M) the kernel samples as that path does
+    # (clip_taps), decided here from the static M and camera model.
     fused = (cfg.pallas_photo and not cfg.true_pyramid
-             and cam.model == "pinhole" and ps == 8)
-    clip_taps = photo_mod.clip_taps_at(submap.pos.shape[0])
+             and cam.model in ("pinhole", "equidistant") and ps == 8)
+    equidistant = cam.model == "equidistant"
+    clip_taps = photo_mod.clip_taps_at(submap.pos.shape[0], cam.model)
     has_dist = 1.0 if cam_mod.has_distortion(cam) else 0.0
     img32 = img.to(torch.float32).contiguous()
     iterations = 0
@@ -578,9 +582,10 @@ def photometric_update(state_prop: NavState, cov_prop, submap: Submap, img,
             if fused:
                 par = photo_mod.pack_params(
                     Rcw, Pcw, tau, Jdphi_dR, Jdp_dR, cam.fx, cam.fy, cam.cx,
-                    cam.cy, cam.d, expo_col, has_dist)
+                    cam.cy, cam.d, expo_col, has_dist, equidistant)
                 HTH7, HTz7, err_sum, _ = photo_mod.photo_iteration(
-                    img32, meta, ref_patch, par, ps, clip_taps=clip_taps)
+                    img32, meta, ref_patch, par, ps, clip_taps=clip_taps,
+                    equidistant=equidistant)
                 return HTH7.to(f32), HTz7.to(f32), err_sum.to(f32) / n_meas
             pf = submap.pos @ Rcw.T + Pcw
             px = cam_mod.world2cam(cam, pf)

@@ -7,7 +7,14 @@
 // What it computes is the TPU kernel's function, not its block
 // structure. Per point i (one row of pts_meta):
 //   pf = Rcw pos + Pcw; z = pf.z guarded at 1e-9; okf = ok & (pf.z > 1e-6)
-//   (u, v) = pinhole projection, radtan applied only if has_dist > 0.5
+//   (u, v) = the camera model's projection, a template parameter with two
+//   instantiations (the caller picks one by the camera's model):
+//     pinhole: radtan applied only if has_dist > 0.5;
+//     equidistant (models/camera.py:world2cam's fisheye branch):
+//       r = sqrt(x^2 + y^2) guarded at 1e-9, theta = atan2(r, z),
+//       theta_d = theta (1 + k1 theta^2 + k2 theta^4 + k3 theta^6 +
+//       k4 theta^8), (u, v) = f theta_d (x, y) / r + c, in full-precision
+//       sqrtf and atan2f (no fast math, no intrinsics)
 //   s = 1 << clip(slog, 0, max_slog)              (the stride clamp)
 //   x0 = floor(u/s)*s - 5s clipped as ONE block to [0, W - 12s];
 //   y0 = floor(v/s)*s - 5s; each of the 12 rows clipped to [0, H-1]
@@ -23,6 +30,12 @@
 //   ten okf-masked patch sums, then the closed-form row
 //   [HTH(49) | HTz(7) | err | cnt] with H_c = a_c du + b_c dv (c < 6),
 //   H_6 = expo * val; out = the rows summed over points.
+// Everything after the projection is shared by both models: the Jacobian
+// chain takes the undistorted pinhole d(px)/d(pf) for either, as the
+// torch-op path and the reference (computeProjectionJacobian,
+// vio.cpp:189-201, which ignores distortion) do. The JAX package never
+// sends a fisheye through its TPU kernel, so the port samples the
+// equidistant camera with clip_taps set at every M.
 // The TPU kernel selected the strided taps with a one-hot matrix
 // product because Mosaic has no strided dynamic loads; here each warp
 // loads its 144 taps directly. floor(u/s)*s is clamped to +-2^30 before
@@ -63,6 +76,15 @@
 // ceil(M / 8) partials. The image (H x W f32, 1.3 MB at 640 x 512) stays
 // in the 50 MB L2 across calls.
 //
+// The equidistant case at hilti22's M = 432 on a 720 x 540 image (1.56 MB,
+// in L2 as well): at most 432 x 144 = 62k distinct taps (249 KB) + 432 x
+// 72 point floats (124 KB) + the row and the output, under 0.38 MB (0.11
+// us at 3.35 TB/s), and about 2.0 MFLOP with the projection's sqrt, atan2
+// and polynomial (0.03 us): again far below a launch. 54 blocks, one wave.
+// Its dependent chain is the pinhole one plus the sqrt, the atan2 (a few
+// dozen dependent FP32 instructions) and two divisions per point, so its
+// time is still the launch plus one point's chain and the last block's sum.
+//
 // Why not a cluster with a DSMEM reduction: a cluster holds at most 8
 // (16 non-portable) blocks, so one cluster could not span the grid at
 // the main path's 50 blocks, and making each warp loop over several
@@ -71,7 +93,10 @@
 //
 // C interface for ctypes:
 //   photo_iteration_launch(img, meta, ref, par, partials, ticket, out,
-//                          H, W, M, max_slog, clip_taps, device, stream)
+//                          H, W, M, max_slog, clip_taps, equidistant,
+//                          device, stream)
+// equidistant (0 or 1) picks the instantiation; it must agree with the
+// row's model flag, par[41], which pack_params writes from the same value.
 // img (H, W), meta (M, 8), ref (M, 8, 8), par (1, 64) contiguous float32
 // pointers on CUDA device `device`; partials (>= ceil(M / 8) x 64 floats)
 // and ticket (one uint32, 0 before the first call, left at 0 by every
@@ -113,7 +138,8 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 // The 64-float row of one point, computed by one warp: lane l returns
 // entries l (e0) and l + 32 (e1). m and refi are the point's meta and
 // reference rows, P the parameter row and win the warp's window tile,
-// both in shared memory.
+// both in shared memory. kEquidistant: the camera model's projection.
+template <bool kEquidistant>
 __device__ __forceinline__ void point_row(
     const float* __restrict__ img, const float* __restrict__ m,
     const float* __restrict__ refi, const float* P, float (*win)[kWin],
@@ -128,18 +154,32 @@ __device__ __forceinline__ void point_row(
   const float pfz = P[6] * px + P[7] * py + P[8] * pz + P[11];
   const float tau = P[12];
   const float fx = P[31], fy = P[32], cx = P[33], cy = P[34];
-  const float k1 = P[35], k2 = P[36], p1 = P[37], p2 = P[38];
   const float expo = P[39];
   const bool z_ok = pfz > 1e-6f;
   const float z = fabsf(pfz) < 1e-9f ? 1e-9f : pfz;
-  const float un = pfx / z;
-  const float vn = pfy / z;
-  float uu = un, vv = vn;
-  if (P[40] > 0.5f) {
-    const float r2 = un * un + vn * vn;
-    const float radial = 1.0f + k1 * r2 + k2 * r2 * r2;
-    uu = un * radial + 2.0f * p1 * un * vn + p2 * (r2 + 2.0f * un * un);
-    vv = vn * radial + p1 * (r2 + 2.0f * vn * vn) + 2.0f * p2 * un * vn;
+  float uu, vv;
+  if constexpr (kEquidistant) {
+    const float k1 = P[35], k2 = P[36], k3 = P[37], k4 = P[38];
+    const float r0 = sqrtf(pfx * pfx + pfy * pfy);
+    const float r = r0 < 1e-9f ? 1e-9f : r0;
+    const float th = atan2f(r, z);
+    const float t2 = th * th;
+    const float t4 = t2 * t2;
+    const float thd = th * (1.0f + k1 * t2 + k2 * t4 + k3 * (t4 * t2) + k4 * (t4 * t4));
+    uu = thd * pfx / r;
+    vv = thd * pfy / r;
+  } else {
+    const float k1 = P[35], k2 = P[36], p1 = P[37], p2 = P[38];
+    const float un = pfx / z;
+    const float vn = pfy / z;
+    uu = un;
+    vv = vn;
+    if (P[40] > 0.5f) {
+      const float r2 = un * un + vn * vn;
+      const float radial = 1.0f + k1 * r2 + k2 * r2 * r2;
+      uu = un * radial + 2.0f * p1 * un * vn + p2 * (r2 + 2.0f * un * un);
+      vv = vn * radial + p1 * (r2 + 2.0f * vn * vn) + 2.0f * p2 * un * vn;
+    }
   }
   const float u = fx * uu + cx;
   const float v = fy * vv + cy;
@@ -259,6 +299,7 @@ __device__ __forceinline__ void point_row(
   e1 = entry(lane + 32);
 }
 
+template <bool kEquidistant>
 __global__ void __launch_bounds__(kThreads)
 photo_iteration_kernel(const float* __restrict__ img, const float* __restrict__ meta,
                        const float* __restrict__ ref, const float* __restrict__ par,
@@ -278,7 +319,7 @@ photo_iteration_kernel(const float* __restrict__ img, const float* __restrict__ 
   const int i = blockIdx.x * kWarps + w;
   float e0 = 0.0f, e1 = 0.0f;
   if (i < M) {  // uniform over the warp
-    point_row(img, meta + static_cast<size_t>(i) * kMetaW,
+    point_row<kEquidistant>(img, meta + static_cast<size_t>(i) * kMetaW,
               ref + static_cast<size_t>(i) * kPs * kPs, P, win[w], H, W,
               max_slog, clip_taps, lane, e0, e1);
   }
@@ -320,16 +361,19 @@ extern "C" int photo_iteration_launch(const void* img, const void* meta,
                                       const void* ref, const void* par,
                                       void* partials, void* ticket, void* out,
                                       int H, int W, int M, int max_slog,
-                                      int clip_taps, int device, void* stream) {
-  if (H < 1 || W < kWin || M < 0 || max_slog < 0) {
+                                      int clip_taps, int equidistant, int device,
+                                      void* stream) {
+  if (H < 1 || W < kWin || M < 0 || max_slog < 0 || (equidistant & ~1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (max_slog > 27) max_slog = 27;  // 12 << 28 exceeds any int W
   while (max_slog > 0 && (kWin << max_slog) > W) --max_slog;
   const int blocks = M > 0 ? (M + kWarps - 1) / kWarps : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto kernel = equidistant ? &photo_iteration_kernel<true>
+                                  : &photo_iteration_kernel<false>;
   return launch_on(device, [&] {
-    photo_iteration_kernel<<<blocks, kThreads, 0, s>>>(
+    kernel<<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(img), static_cast<const float*>(meta),
         static_cast<const float*>(ref), static_cast<const float*>(par),
         static_cast<float*>(partials), static_cast<unsigned*>(ticket),

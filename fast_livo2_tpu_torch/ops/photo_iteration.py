@@ -3,7 +3,8 @@ TPU kernel K2, fast_livo2_tpu/ops/pallas_photo.py:photo_iteration).
 
 `photo_iteration` is the wrapper `core/vio.photometric_update` calls
 once per iteration (up to pyramid levels x max_iterations a frame). It
-computes, per point: the pinhole (+radtan) projection, a 12 x 12
+computes, per point: the camera's projection (pinhole with radtan, or
+the equidistant fisheye of models/camera.world2cam), a 12 x 12
 superpatch of the level-0 image at stride s = 2^clip(slog, 0,
 max_scale_log2), bilinear val/du/dv on the 8 x 8 patch, the residual
 tau * val - ref, ten patch sums and from them, in closed form, one row
@@ -14,6 +15,9 @@ On CUDA tensors it launches the hand-written kernel
 `csrc/photo_iteration.cu` (one launch: one warp per point, eight points
 a block, the sum over blocks by the last block to finish, in a fixed
 order; the source says what bounds it) or raises: there is no fallback.
+The projection is a compile-time choice there, one instantiation a
+camera model; the caller names the model (`equidistant`, a Python
+value, as pack_params was given it), so a call reads nothing back.
 The call takes the shared launch path of ops/_launch.py; its scratch
 (the blocks' partial rows and the last-block ticket) is allocated once
 per device and stream and grows with M, so a call allocates only its
@@ -32,6 +36,9 @@ in core/vio.py (which samples through ops/image):
   tap on its own;
 - okf = ok & (z > 1e-6); z is guarded at 1e-9; radtan is applied only
   when has_dist > 0.5; cnt = okf * 64.
+- The equidistant projection is world2cam's (r guarded at 1e-9, theta =
+  atan2(r, z), the k1..k4 polynomial); the Jacobian chain after it is
+  the undistorted pinhole one for both models, as in the torch-op path.
 One addition: the window base floor(u / s) * s is clamped to +-2^30
 before the integer conversion, so that a point projecting out of
 int32 range reads a clipped window on both devices (the conversion of
@@ -44,7 +51,9 @@ tap clipped on its own. The JAX package runs its TPU kernel only up to
 TPU_KERNEL_MAX_POINTS tracked points (fast_livo2_tpu/core/vio.py:
 546-549) and its XLA sampler above; `clip_taps_at(M)` gives the
 sampling that package uses at M points, so that the port, which runs
-this kernel at every M, computes what the JAX package computes.
+this kernel at every M, computes what the JAX package computes. That
+package never sends an equidistant camera through its TPU kernel, so
+`clip_taps_at(M, "equidistant")` is True at every M.
 """
 
 import ctypes
@@ -58,8 +67,10 @@ from . import _launch
 META_W = 8
 # params layout: Rcw(0:9) | Pcw(9:12) | tau(12) | Jdphi_dR(13:22) |
 # Jdp_dR(22:31) | fx fy cx cy (31:35) | k1 k2 p1 p2 (35:39) |
-# expo_flag(39) | has_dist(40); padded to 64.
+# expo_flag(39) | has_dist(40) | equidistant(41); padded to 64. For the
+# equidistant model k1 .. k4 (35:39) are its four polynomial coefficients.
 PAR_W = 64
+MODEL_COL = 41
 OUT_W = 64  # HTH(49) | HTz(7) | err(56) | cnt(57) | pad
 
 WIN = 12  # superpatch rows/cols (ps + 4 at ps = 8)
@@ -89,12 +100,13 @@ def clamp_scale_log2(width: int, max_scale_log2: int = 4) -> int:
     return max_scale_log2
 
 
-def clip_taps_at(M: int) -> bool:
-    """True where the JAX package samples M tracked points through its XLA
-    path (each tap clipped, no stride clamp), False where through its TPU
-    kernel: decided from the static M, as the JAX package decides at trace
-    time."""
-    return M > TPU_KERNEL_MAX_POINTS
+def clip_taps_at(M: int, model: str = "pinhole") -> bool:
+    """True where the JAX package samples M tracked points of a `model`
+    camera through its XLA path (each tap clipped, no stride clamp), False
+    where through its TPU kernel: decided from the static M and camera
+    model, as the JAX package decides at trace time (its kernel takes the
+    pinhole camera only)."""
+    return model != "pinhole" or M > TPU_KERNEL_MAX_POINTS
 
 
 def pack_points(pos, ref_patch, scale_log2, ok, ps: int = 8):
@@ -108,15 +120,18 @@ def pack_points(pos, ref_patch, scale_log2, ok, ps: int = 8):
 
 
 def pack_params(Rcw, Pcw, tau, Jdphi_dR, Jdp_dR, fx, fy, cx, cy, dist,
-                expo_flag: float, has_dist: float):
+                expo_flag: float, has_dist: float, equidistant: bool = False):
     """(1, PAR_W) parameter row of photo_iteration, on the device of Rcw.
-    The camera columns (fx .. has_dist, Python floats) are uploaded once
-    per camera and device, so a call makes no host-to-device copy."""
+    The camera columns (fx .. the model flag, Python values) are uploaded
+    once per camera and device, so a call makes no host-to-device copy.
+    `dist`: radtan (k1, k2, p1, p2), or with `equidistant` the fisheye's
+    (k1, k2, k3, k4)."""
     f = torch.float32
     tail = _camera_columns(
         (float(fx), float(fy), float(cx), float(cy))
         + tuple(float(x) for x in tuple(dist)[:4])
-        + (float(expo_flag), float(has_dist)), str(Rcw.device))
+        + (float(expo_flag), float(has_dist), float(bool(equidistant))),
+        str(Rcw.device))
     row = torch.cat([
         Rcw.reshape(9).to(f), Pcw.reshape(3).to(f), tau.reshape(1).to(f),
         Jdphi_dR.reshape(9).to(f), Jdp_dR.reshape(9).to(f), tail])
@@ -128,13 +143,13 @@ def _camera_columns(values: tuple, device: str) -> torch.Tensor:
     """Columns 31:64 of the parameter row (the camera, the flags and the
     zero padding) as one device tensor; callers never write to it, and
     it is never freed: a captured CUDA graph reads it by address."""
-    return torch.tensor(values + (0.0,) * (PAR_W - 41), dtype=torch.float32,
+    return torch.tensor(values + (0.0,) * (PAR_W - 42), dtype=torch.float32,
                         device=device)
 
 
 def _project(pts_meta, params):
-    """Per-point projection scalars of the TPU kernel: (pf (x, y, z),
-    guarded z, u, v, okf)."""
+    """Per-point projection scalars of the kernel: (pf (x, y, z), guarded
+    z, u, v, okf), through the model the row's MODEL_COL names."""
     P = params[0]
     Rcw = [[P[3 * r + c] for c in range(3)] for r in range(3)]
     Pcw = [P[9], P[10], P[11]]
@@ -157,6 +172,16 @@ def _project(pts_meta, params):
     vd = vn * radial + p1 * (r2 + 2 * vn * vn) + 2 * p2 * un * vn
     uu = torch.where(has_dist > 0.5, ud, un)
     vv = torch.where(has_dist > 0.5, vd, vn)
+    # the equidistant fisheye, as models/camera.world2cam writes it
+    k3, k4 = p1, p2
+    r = torch.sqrt(pfx * pfx + pfy * pfy)
+    r = torch.where(r < 1e-9, 1e-9, r)
+    theta = torch.atan2(r, z)
+    t2 = theta * theta
+    theta_d = theta * (1 + k1 * t2 + k2 * t2**2 + k3 * t2**3 + k4 * t2**4)
+    equi = P[MODEL_COL] > 0.5
+    uu = torch.where(equi, theta_d * pfx / r, uu)
+    vv = torch.where(equi, theta_d * pfy / r, vv)
     u = fx * uu + cx
     v = fy * vv + cy
     okf = torch.where(ok0 & z_ok, 1.0, 0.0)
@@ -301,9 +326,9 @@ def _kernel():
     global _fn
     if _fn is None:
         # img, meta, ref, par, partials, ticket, out, H, W, M,
-        # max_scale_log2, clip_taps, device, stream
+        # max_scale_log2, clip_taps, equidistant, device, stream
         _fn = _launch.load("photo_iteration", "photo_iteration_launch",
-                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                           [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p])
     return _fn
 
@@ -339,11 +364,14 @@ def _diagnose(img, pts_meta, ref_patch, params, ps):
 
 
 def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
-                    max_scale_log2: int = 4, clip_taps: bool = False):
+                    max_scale_log2: int = 4, clip_taps: bool = False,
+                    equidistant: bool = False):
     """One fused photometric iteration.
 
     img: (H, W) f32; pts_meta: (M, META_W); ref_patch: (M, ps, ps);
-    params: (1, PAR_W); clip_taps: the sampling (module docstring).
+    params: (1, PAR_W); clip_taps: the sampling (module docstring);
+    equidistant: the camera model pack_params wrote into params, which
+    picks the kernel's instantiation (the plain version reads the row).
     Returns (HTH7 (7, 7), HTz7 (7,), err_sum (), cnt ()). CPU tensors
     run the plain version; CUDA tensors launch the kernel."""
     dev = img.get_device()
@@ -372,7 +400,8 @@ def photo_iteration(img, pts_meta, ref_patch, params, ps: int = 8,
                              ref_patch.data_ptr(), params.data_ptr(),
                              partials.data_ptr(), ticket.data_ptr(),
                              tot.data_ptr(), H, W, M, max_scale_log2,
-                             int(clip_taps), dev, stream)
+                             int(clip_taps), int(bool(equidistant)), dev,
+                             stream)
     if err:
         _launch.fail("photo_iteration", err)
     global LAUNCHES

@@ -324,6 +324,152 @@ def test_photo_iteration_one_device_kernel_per_call():
     assert all("photo_iteration_kernel" in n for n in names), names
 
 
+def _equidistant_inputs(M, seed=0):
+    """K2's inputs at HILTI'22's processed camera (configs/hilti22.yaml +
+    camera_fisheye_hilti22.yaml: 720 x 540 equidistant fisheye, its k1..k4)
+    in its sampling (clip_taps, the equidistant instantiation): a smooth
+    DN-scale image, M points over the fisheye's field of view 1.5-8 m out,
+    about a twentieth of them behind the camera, the first one on the
+    optical axis; stride exponents 0-5, about 10 % masked out."""
+    from fast_livo2_tpu_torch.models import camera
+    from fast_livo2_tpu_torch.utils.config import load_config
+
+    cfg_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs")
+    cam = camera.make_camera(load_config(
+        os.path.join(cfg_dir, "hilti22.yaml"),
+        os.path.join(cfg_dir, "camera_fisheye_hilti22.yaml")).camera)
+    assert (cam.model, cam.height, cam.width) == ("equidistant", 540, 720)
+    rng = np.random.default_rng(seed)
+    H, W = cam.height, cam.width
+    img = np.cumsum(np.cumsum(rng.standard_normal((H, W)), 0), 1)
+    img = ((img - img.min()) / (img.max() - img.min()) * 255).astype(np.float32)
+    z = rng.uniform(1.5, 8.0, M)
+    pos = np.concatenate([rng.uniform([-1.8, -1.4], [1.8, 1.4], (M, 2)) * z[:, None],
+                          z[:, None]], -1)
+    pos[rng.random(M) < 0.05, 2] *= -1.0
+    if M:
+        pos[0] = (0.0, 0.0, 3.0)
+    ref = rng.uniform(0, 255, (M, 64)).astype(np.float32)
+    slog = rng.integers(0, 6, M).astype(np.int32)
+    ok = rng.random(M) > 0.1
+    dev = "cuda"
+    meta, refp = photo.pack_points(*(torch.from_numpy(a).to(dev) for a in (
+        pos.astype(np.float32), ref, slog, ok)))
+    eye = torch.eye(3, device=dev)
+    par = photo.pack_params(eye, torch.zeros(3, device=dev),
+                            torch.tensor(1.05, device=dev), eye, 0.1 * eye,
+                            cam.fx, cam.fy, cam.cx, cam.cy, cam.d, 1.0, 1.0,
+                            equidistant=True)
+    return torch.from_numpy(img).to(dev), meta, refp, par
+
+
+_EQUI = dict(clip_taps=True, equidistant=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [432, 0, 1, 7, 9, 433])
+def test_photo_iteration_equidistant_kernel_matches_plain(M):
+    """K2's equidistant instantiation against its plain version at
+    HILTI'22's 720 x 540 fisheye and M = 432, and at point counts around
+    its eight points a block; the pinhole instantiation on the same row
+    differs (the row's model flag does not pick the kernel's projection:
+    the caller's `equidistant` does)."""
+    _need_card()
+    args = _equidistant_inputs(M, seed=M)
+    before = photo.LAUNCHES
+    got = photo.photo_iteration(*args, **_EQUI)
+    torch.cuda.synchronize()
+    assert photo.LAUNCHES == before + 1
+    if M == 0:
+        assert all(not torch.any(g) for g in got)
+    _assert_photo_close(got, photo.photo_iteration_plain(*args, clip_taps=True))
+    if M >= 9:
+        pin = photo.photo_iteration(*args, clip_taps=True)
+        assert not torch.allclose(pin[0], got[0], rtol=RTOL_PHOTO, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_photo_iteration_equidistant_kernel_bitwise_repeatable():
+    """20 equidistant calls give the same bits, with pinhole calls (the
+    other instantiation, another grid) in between."""
+    _need_card()
+    args = _equidistant_inputs(432)
+    others = [_photo_inputs(512, 640, M, False, seed=M) for M in (9, 396)]
+    first = _photo_flat(photo.photo_iteration(*args, **_EQUI))
+    for k in range(20):
+        assert torch.equal(_photo_flat(photo.photo_iteration(*args, **_EQUI)), first)
+        photo.photo_iteration(*others[k % 2])
+
+
+def _profiled_kernel_names(call, n=10, tries=3):
+    """The device events of n calls, profiled after a warm-up cycle; a
+    profile that sees fewer than n is taken again (the profiler drops
+    events, and a drop only lowers the count), up to `tries` times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(tries):
+        recorded = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: recorded.append(
+                         [e.name for e in p.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA])) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    call()
+                torch.cuda.synchronize()
+                prof.step()
+        if len(recorded[-1]) >= n:
+            break
+    return recorded[-1]
+
+
+@pytest.mark.cuda
+def test_photo_iteration_equidistant_one_device_kernel_per_call():
+    """One launch a call in the equidistant instantiation too, under a
+    kernel name of its own that still holds `photo_iteration_kernel`."""
+    _need_card()
+    cases = {"equi": (_equidistant_inputs(432), _EQUI),
+             "pin": (_photo_inputs(512, 640, 396, False), {})}
+    names = {}
+    for key, (a, k) in cases.items():
+        photo.photo_iteration(*a, **k)  # the stream's scratch is allocated here
+        torch.cuda.synchronize()
+        names[key] = _profiled_kernel_names(lambda: photo.photo_iteration(*a, **k))
+        assert len(names[key]) == 10, names[key]
+        assert all("photo_iteration_kernel" in n for n in names[key]), names[key]
+    assert set(names["equi"]).isdisjoint(names["pin"]), names
+
+
+@pytest.mark.cuda
+def test_photo_iteration_equidistant_kernel_captured_in_a_graph():
+    """The equidistant call captured in a CUDA graph (as the fused frame
+    captures it): each replay gives the eager call's bits, also after the
+    inputs are rewritten in place between replays."""
+    _need_card()
+    img, meta, refp, par = _equidistant_inputs(432)
+    other = _equidistant_inputs(432, seed=5)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the side stream's scratch, before capture
+        photo.photo_iteration(img, meta, refp, par, **_EQUI)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    before = photo.LAUNCHES
+    with torch.cuda.graph(g, stream=side):
+        out = photo.photo_iteration(img, meta, refp, par, **_EQUI)
+    assert photo.LAUNCHES == before + 1
+    for src in (None, other, None):
+        if src is not None:
+            for dst, s in zip((img, meta, refp, par), src):
+                dst.copy_(s)
+        want = _photo_flat(photo.photo_iteration(img, meta, refp, par, **_EQUI))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_photo_flat(out), want)
+
+
 @pytest.mark.cuda
 def test_raw_stream_is_the_current_stream():
     _need_card()

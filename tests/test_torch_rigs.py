@@ -340,11 +340,12 @@ class OneStep:
     a packet.
 
     The port samples as the JAX package on the CPU does: through K2's
-    plain version above 448 tracked points (clip_taps) and its torch-op
-    path otherwise (tpu.pallas_photo off; ROADMAP "Sampling on the CPU
-    at M <= 448"); `k2` True or False sets tpu.pallas_photo instead (K2's
-    plain version at M <= 448 samples as the TPU kernel does, so there
-    only each package's one-ulp twin against itself compares).
+    plain version where K2 takes clip_taps (above 448 tracked points, and
+    the equidistant camera at every M) and its torch-op path otherwise
+    (tpu.pallas_photo off; ROADMAP "Sampling on the CPU at M <= 448");
+    `k2` True or False sets tpu.pallas_photo instead (K2's plain version
+    on a pinhole camera at M <= 448 samples as the TPU kernel does, so
+    there only each package's one-ulp twin against itself compares).
 
     `twins`: each stage also runs in both packages on a copy of its
     inputs with one input moved by one float32 ulp (the LIO half: the
@@ -366,7 +367,8 @@ class OneStep:
         cfg = copy.deepcopy(cfg)
         pipe = LIVOPipeline(cfg, slam_mode="livo", device="cpu")
         M = pipe.vio_cfg.grid_n_width * pipe.vio_cfg.grid_n_height
-        cfg.tpu.pallas_photo = tp.clip_taps_at(M) if k2 is None else k2
+        cfg.tpu.pallas_photo = (tp.clip_taps_at(M, pipe.cam.model)
+                                if k2 is None else k2)
         self.port = LIVOPipeline(cfg, slam_mode="livo", device="cpu")
         self.twins, self.trace, self.keep = twins, trace, set(keep)
         self.frames, self.packets, self.kept = [], [], {}
@@ -1061,7 +1063,9 @@ def assert_traj_equal(a, b):
 def test_rig_tracked_slots(rig, M):
     """The tracked-slot count M of each shipped pair at its processed
     camera (the grid of utils/config.derive_grid), and the K2 sampling it
-    selects: only ntu_viral is above the JAX package's 448-point gate."""
+    selects: only ntu_viral is above the JAX package's 448-point gate, and
+    hilti22's equidistant camera samples as that package's XLA path at
+    every M."""
     from fast_livo2_tpu_torch.ops import photo_iteration as tp
 
     pipe = LIVOPipeline(shrink(load_config(*cs.rig_paths(rig))),
@@ -1070,6 +1074,7 @@ def test_rig_tracked_slots(rig, M):
     assert cfg.grid_n_width * cfg.grid_n_height == M
     assert tp.clip_taps_at(M) == (rig == "ntu_viral")
     assert (pipe.cam.model == "equidistant") == (rig == "hilti22")
+    assert tp.clip_taps_at(M, pipe.cam.model) == (rig in ("ntu_viral", "hilti22"))
     assert cam_mod.has_distortion(pipe.cam)
 
 

@@ -1,8 +1,8 @@
 """The hilti22 rig (configs/hilti22.yaml + camera_fisheye_hilti22.yaml:
 Hesai XT32 PointCloud2 in a flipped LiDAR frame, 32 x 1,000 points, 0.4
 m voxels, the 720 x 540 equidistant camera at 40 Hz decimated to 10 Hz;
-its photometric update runs in tensor ops (no K2), as in the JAX
-package) on the CPU at tests/test_torch_rigs.py's size, through its bag
+its photometric update runs through K2's plain version, sampling each
+tap as the JAX package's XLA path does) on the CPU at tests/test_torch_rigs.py's size, through its bag
 and the converter: the port's LIVO run against the JAX package's within
 8e-3 m / 4e-3; the port's frame held to the JAX run one step at a time
 (tests/test_torch_rigs.OneStep: its packets, LIO half, VIO half and
